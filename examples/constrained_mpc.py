@@ -22,6 +22,9 @@ import numpy as np
 
 
 def main():
+    from pdp_lqr_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--horizon", type=int, default=40)
     ap.add_argument("--steps", type=int, default=40)

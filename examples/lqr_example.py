@@ -1,6 +1,6 @@
 """Quadrotor MPC three-solver cross-check — the reference example.
 
-TPU-native port of the reference driver (examples/lqr_example.cpp):
+JAX port of the reference's example program (examples/lqr_example.cpp):
 build the quadrotor problem (nx=12, nu=4, N=100), run it through the
 KKT, sequential-Riccati, PDP-parallel, and associative-scan backends,
 time each, and print the first 5 inputs + final state for comparison
@@ -23,6 +23,9 @@ import numpy as np
 
 
 def main():
+    from pdp_lqr_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--horizon", type=int, default=100)
     ap.add_argument("--f64", action="store_true",

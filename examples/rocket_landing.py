@@ -5,13 +5,13 @@ glideslope SOC + thrust box) driven through the framework three ways:
 
   1. single-instance optimal descent (admm.solve), feasibility report;
   2. Monte-Carlo entry dispersion through the fused batch loop
-     (admm.solve_fused, auto single-kernel) — the serving shape:
+     (admm.solve_fused) — the serving shape:
      landing footprint statistics + solves/s;
   3. closed-loop MPC under wind (mpc.simulate): warm-started replans,
      convergence-iteration stats.
 
-Run on the chip for real numbers; on CPU it uses interpret-mode Pallas
-(slow but exact).  The reference has no counterpart for any of this —
+Run on the GPU for real numbers; on the CPU it runs the XLA sweeps in
+float64.  The reference has no counterpart for any of this —
 its outer loop is unreleased (README.md:8); this is what "conic" in its
 title buys once completed.
 """
@@ -30,10 +30,13 @@ import numpy as np
 
 
 def main():
+    from pdp_lqr_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser()
     ap.add_argument("--horizon", type=int, default=48)
     ap.add_argument("--batch", type=int, default=None,
-                    help="Monte-Carlo batch (default 512 on TPU, 8 CPU)")
+                    help="Monte-Carlo batch (default 512 on GPU, 8 CPU)")
     ap.add_argument("--steps", type=int, default=30,
                     help="closed-loop MPC steps")
     ap.add_argument("--iters", type=int, default=5,
@@ -79,15 +82,13 @@ def main():
     # ---- 2. Monte-Carlo entry dispersion (fused batch) ------------------
     bp = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), problem)
     x0s = rocket_x0(batch=B, dtype=dtype)
-    fn = jax.jit(lambda p, x: admm.solve_fused(
-        p, x, cones, settings, interpret=on_cpu))
-    fence = jax.jit(lambda w: jnp.all(jnp.isfinite(w)))
-    wsb = fn(bp, x0s)[0]
-    assert bool(fence(wsb))
+    fn = jax.jit(lambda p, x: admm.solve_fused(p, x, cones, settings))
+    wsb = jax.block_until_ready(fn(bp, x0s)[0])
+    assert bool(jnp.all(jnp.isfinite(wsb)))
     t0 = time.perf_counter()
     for _ in range(args.iters):
         wsb = fn(bp, x0s)[0]
-    bool(fence(wsb))
+    jax.block_until_ready(wsb)
     dt_s = (time.perf_counter() - t0) / args.iters
     land = np.asarray(wsb[:, -1, 3:])
     r_err = np.linalg.norm(land[:, :3], axis=1)

@@ -1,7 +1,7 @@
 // Native CPU batch engine for constrained LQ inner solves.
 //
-// Role in the TPU framework: the reference (Luyao787/PDP-LQR) is a
-// header-only C++/Eigen/OpenMP library; the TPU build keeps its compute
+// Role in the framework: the reference (Luyao787/PDP-LQR) is a
+// header-only C++/Eigen/OpenMP library; this package keeps its compute
 // path in JAX/XLA/Pallas, and this translation-unit provides the
 // native-runtime counterpart — a dependency-free C++17 implementation
 // of the same inner KKT solve (sigma-regularized, penalty-folded
@@ -12,7 +12,7 @@
 //
 // Uses: (1) compiled independent parity witness for the JAX backends,
 // (2) fast host-side fallback when no accelerator is attached,
-// (3) data-loader-side warm-start generation without touching the TPU.
+// (3) data-loader-side warm-start generation without touching the GPU.
 //
 // No Eigen / BLAS: matrices here are <= ~64x64, where simple
 // loop-tiled scalar code at -O3 is competitive and keeps the build

@@ -1,4 +1,4 @@
-"""pdp_lqr_tpu — a TPU-native conic LQR / trajectory-optimization engine.
+"""pdp_lqr_tpu — a batched conic LQR / trajectory-optimization engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 PDP-LQR reference library (parallel dynamic programming for conic linear
@@ -19,7 +19,7 @@ programs:
   of the full-horizon KKT system (reference: kkt.hpp + qdldl_solver.hpp,
   re-designed as dense block recursions instead of general sparse).
 - ``solvers.assoc``       — log-depth associative-scan Riccati
-  (``lax.associative_scan`` over value-function factors), the TPU-native
+  (``lax.associative_scan`` over value-function factors), a log-depth
   formulation with no reference counterpart.
 - ``solvers.admm``        — OSQP-style conic ADMM outer loop (projection
   onto boxes and second-order cones, dual updates, residuals, rho

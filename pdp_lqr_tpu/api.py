@@ -232,83 +232,65 @@ class QDLDLSolver(_SolverBase):
 
 
 class AssociativeScanSolver(_SolverBase):
-    """Log-depth associative-scan Riccati (TPU-native; no reference
+    """Log-depth associative-scan Riccati (no reference
     counterpart — same lifecycle for interchangeability)."""
 
     _backend = "assoc"
 
 
 class ScenarioServer:
-    """One-model-many-scenarios serving on the shared-stage kernels.
+    """One-model-many-scenarios serving on the shared-stage sweeps.
 
     The reference's process shape — a single ``LQRModel`` behind all
     solvers (lqr_model.hpp:66-89) — as a first-class serving API: the
-    stage matrices live in HBM as ONE pinned lane chunk while scenario
-    batches (per-scenario x0, optional per-scenario drift c, warm-start
-    iterates) stream at full batch width.  This is the bench headline
-    path (236k+ solves/s/chip on one v5e at N=512).
+    stage matrices live in device memory once (lane width 1) while
+    scenario batches (per-scenario x0, optional per-scenario drift c,
+    warm-start iterates) run at full batch width.
 
         server = ScenarioServer(model)
         ws = server.solve(x0s)                       # inner LQ solves
         ws, state, info = server.solve_admm(x0s, cones, settings)
 
-    ``model`` is UNBATCHED.  On hardware the batch must be a multiple
-    of 128 (lane alignment); interpret mode (auto on CPU) takes any.
+    ``model`` is UNBATCHED.  The sweep implementation follows the
+    platform (ops/pallas_riccati.choose_impl).
     """
 
     def __init__(self, model: LQRProblem, rho: float = 0.01,
-                 sigma: float = 1e-6, interpret: bool | None = None):
+                 sigma: float = 1e-6):
         if model.A.ndim != 3:
             raise ValueError("ScenarioServer takes an UNBATCHED model")
+        from pdp_lqr_tpu.ops import pallas_riccati as _pr
         from pdp_lqr_tpu.problem import init_iterates
+        from pdp_lqr_tpu.solvers import admm as _admm
 
         self.model = model
         self.sigma = float(sigma)
-        self.interpret = (jax.default_backend() == "cpu"
-                          if interpret is None else interpret)
         self._it = init_iterates(model, rho=rho)
-
-        from pdp_lqr_tpu.ops import pallas_riccati as _pr
-
         self._solve = jax.jit(
-            lambda m, it, x0: _pr.solve_shared(
-                m, it, x0, self.sigma, interpret=self.interpret))
+            lambda m, it, x0: _pr.solve_shared(m, it, x0, self.sigma))
+        self._solve_admm = jax.jit(
+            _admm.solve_fused, static_argnames=("cones", "settings"))
+
+    def _with_c(self, c):
+        import dataclasses as _dc
+
+        return self.model if c is None else _dc.replace(
+            self.model, c=jnp.asarray(c, self.model.c.dtype))
 
     def solve(self, x0s, c=None):
         """Batched inner solves: x0s (B, nx), optional per-scenario
         drift c (B, N, nx).  Returns ws (B, N+1, nz)."""
-        import dataclasses as _dc
-
-        m = self.model if c is None else _dc.replace(
-            self.model, c=jnp.asarray(c, self.model.c.dtype))
-        return self._solve(m, self._it, jnp.asarray(x0s))
+        return self._solve(self._with_c(c), self._it, jnp.asarray(x0s))
 
     def solve_admm(self, x0s, cones=(), settings=None, state=None,
-                   soc_shift=None, c=None, split: bool | None = None):
-        """Full conic ADMM over the scenario batch (solve_fused in
-        shared mode, pinned problem streams).  Returns
-        (ws, state, info) — ``state`` warm-starts the next tick.
-
-        ``split`` selects the iteration: True = the split kernel pair
-        (the long-horizon serving path; requires cached_factors or a
-        rho_ladder in ``settings``), False = the single-kernel fused
-        iteration, None (default) = split whenever the settings allow
-        it (cached_factors+uniform_rho or rho_ladder) — the
-        measured-faster choice at every benched horizon (N=64: 136.8k
-        vs 97.1k; N=512: 16.9k vs 8.5k solves/s)."""
-        import dataclasses as _dc
-
+                   soc_shift=None, c=None):
+        """Full conic ADMM over the scenario batch (solve_fused on the
+        shared model).  Returns (ws, state, info) — ``state``
+        warm-starts the next tick."""
         from pdp_lqr_tpu.solvers import admm as _admm
 
         if settings is None:
             settings = _admm.ADMMSettings()
-        if split is None:
-            split = bool(settings.rho_ladder) or (
-                settings.cached_factors and settings.uniform_rho)
-        m = self.model if c is None else _dc.replace(
-            self.model, c=jnp.asarray(c, self.model.c.dtype))
-        return _admm.solve_fused(
-            m, jnp.asarray(x0s), tuple(cones or ()), settings,
-            state=state, soc_shift=soc_shift, interpret=self.interpret,
-            single_kernel=not split,
-        )
+        return self._solve_admm(
+            self._with_c(c), jnp.asarray(x0s), cones=tuple(cones or ()),
+            settings=settings, state=state, soc_shift=soc_shift)

@@ -5,9 +5,9 @@ LQR_INFTY, DIVISION_TOL) and the constructor knobs scattered through
 lqr_solver_parallel.hpp:64-100 (num_segments, load_balancing,
 CondensedSystemSolverType) and qdldl_solver.hpp:40-41 (rho_dyn, sigma).
 
-The TPU build replaces the hardwired ``double`` scalar with a
-configurable dtype: float64 for bit-level parity testing on CPU,
-float32 (optionally bfloat16 inputs) for TPU throughput.
+This build replaces the hardwired ``double`` scalar with a
+configurable dtype: float64 for bit-level parity testing (CPU or GPU),
+float32 for throughput on the GPU.
 """
 
 from __future__ import annotations
@@ -23,12 +23,12 @@ import jax.numpy as jnp
 def f32_matmul_precision(fn):
     """Pin full-float32 matmul precision while tracing ``fn``.
 
-    On TPU, XLA's *default* matmul precision is bfloat16 — measured to
-    corrupt the Riccati recursion by ~1e-1 absolute over a 64-stage
-    horizon (vs 6e-6 at full precision; the value-function recursion
-    amplifies the 2^-8 mantissa truncation).  Solver math must not
-    silently run at bf16, so every compute-path entry point is wrapped
-    with this decorator.  Users can still trade accuracy for speed
+    On the GPU, XLA may run a float32 matrix product in TF32, which
+    keeps about three decimal digits (a 10-bit mantissa); the
+    value-function recursion amplifies that truncation over the
+    horizon.  Solver math must not silently run at reduced precision,
+    so every compute-path entry point is wrapped with this
+    decorator.  Users can still trade accuracy for speed
     explicitly by calling the ops inside their own
     ``jax.default_matmul_precision`` scope *and* bypassing the facades.
     """

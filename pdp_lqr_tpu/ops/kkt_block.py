@@ -6,7 +6,7 @@ The reference assembles one big sparse symmetric matrix over the whole
 horizon (variable ordering kkt.hpp:124-205, qdldl_solver.hpp:112-140)
 and refactors it numerically every ADMM rho-update.
 
-TPU re-design: general dynamic sparsity does not vectorize, but the KKT
+Re-design: general dynamic sparsity does not vectorize, but the KKT
 matrix of an LQ problem is *block tridiagonal* with a fixed bandwidth
 set by (nx, nu) — so the sparse LDL^T becomes a batched block-Thomas
 factorization over dense stage blocks:
@@ -60,7 +60,7 @@ class KKTFactors:
 
     Sinv: explicit inverses of the pivot blocks S_k, (N+1, m, m) —
       cached as inverses (not LU factors) so every resolve is pure
-      batched matmul on the MXU instead of XLA's loop-lowered
+      batched matmul instead of XLA's loop-lowered
       lu_solve; the blocks are symmetric quasi-definite (sigma /
       rho_dyn regularized), so the inverse is well-conditioned.
     U: S_k^{-1} E_k for k = 0..N-1, (N, m, m).
@@ -152,7 +152,7 @@ def build_rhs(problem: LQRProblem, params: StageParams, rho, x0):
 
 
 # Pivot blocks up to this size invert via the unrolled branch-free GE
-# (straight-line VPU code in the scan body); larger blocks fall back to
+# (straight-line elementwise code in the scan body); larger blocks fall back to
 # XLA's LU — its sequential lowering is paid once per rho-update, and
 # the resolve path stays matmul-only either way.
 UNROLL_INV_MAX = 32

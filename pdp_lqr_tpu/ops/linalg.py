@@ -64,10 +64,10 @@ def spd_inverse_from_chol(L: jax.Array) -> jax.Array:
 def cholesky_unrolled(M: jax.Array) -> jax.Array:
     """Lower Cholesky of a small SPD matrix, fully scalar-unrolled.
 
-    XLA's TPU lowering of cholesky/triangular_solve on tiny batched
+    XLA's lowering of cholesky/triangular_solve on tiny batched
     matrices is loop-based and dominates the Riccati scan's runtime;
     for small n (<= ~8) an unrolled factorization compiles to
-    straight-line VPU arithmetic over the batch — no loops, no dynamic
+    straight-line elementwise arithmetic over the batch — no loops, no dynamic
     slices.  n is static (Python), so the unroll emits ~n^3/6 vector
     ops of width = batch.
 
@@ -155,7 +155,7 @@ def ge_solve_unrolled(A: jax.Array, Bmat: jax.Array) -> jax.Array:
     """Solve A X = B for small general A, fully unrolled, with
     branch-free partial pivoting.
 
-    Same motivation as the unrolled Cholesky: XLA's TPU LU lowering is
+    Same motivation as the unrolled Cholesky: XLA's LU lowering is
     a sequential loop that dominates e.g. the associative-scan combine
     (every combine solves with I + C J, n = nx).  Pivoting is done
     with where-masks over the static row range — no dynamic slicing —

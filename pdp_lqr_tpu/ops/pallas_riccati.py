@@ -1,32 +1,30 @@
-"""Fused Pallas Riccati kernels — batch-in-lanes, speed-of-light path.
+"""Batched Riccati sweeps for the GPU: one Pallas-Triton kernel per sweep.
 
-Why this exists: the XLA lowering of the Riccati scan is bounded by two
-TPU pathologies measured on the v5e bench:
+Arrays are batch-leading, ``(W, N, ...)``: W is the batch, or 1 for a
+*shared* tensor — one model serving the whole batch, held once in
+device memory and read by every instance.
 
-  1. Layout: stacked stage tensors shaped (B, N, nz, nz) put tiny
-     matrix dims in the (sublane, lane) tile — a (16, 16) trailing
-     block pads to (16, 128), an 8x HBM blow-up, and the per-step
-     batched cholesky/triangular_solve lower to sequential loops.
-  2. Dispatch shape: per-step ops on (B, 16, 16) operands leave the
-     VPU idle while XLA shuffles layouts between them.
+Three sweeps, each as a Triton kernel and as its plain XLA reference
+(``impl="xla"``), with the same contract:
 
-This module flips the layout: every tensor carries the batch as the
-*minor* (lane) dimension — A is (N, nx, nx, B) — so tiles are
-(matrix-dim, batch): dense in HBM (B % 128 == 0), and every matrix
-operation becomes a short, fully-unrolled sequence of broadcast
-FMAs over (rows, B) vector tiles.  One Pallas kernel runs the whole
-backward recursion with the (P, p) carry resident in VMEM scratch,
-streaming stage data HBM->VMEM with the grid pipeline; a second kernel
-runs the closed-loop rollout.  The math is the dense P-form of
-ops/riccati_dense.py (reference equations lqr_kernel.hpp:103-147,
-reorganized; see that module's docstring for the recursion).
+  ``backward``          factorizing backward sweep with the penalty fold
+                        (lqr_kernel.hpp:103-147, P-form as in
+                        ops/riccati_dense.py); optionally exports the
+                        per-stage factors (P_{k+1}, Huu^{-1}) that
+                        ``backward_vectors`` reuses;
+  ``backward_vectors``  the cached-factor vector sweep — the reference's
+                        backward_without_factorization
+                        (lqr_kernel.hpp:149-178, lqr_solver.hpp:65-70);
+  ``forward``           the closed-loop rollout x+ = A x + B (K x + d) + c.
 
-Constraint penalty folding (lqr_kernel.hpp:106-112) happens inside the
-kernel from (D, rho, rho*g) stage blocks, so the folded Hessian never
-materializes in HBM.
-
-All kernels are f32 (TPU native); parity vs the f64 jnp backends is
-pinned by tests/test_pallas.py at f32 tolerance.
+Kernel design: the grid runs over instances, one program each; the stage
+loop is a ``lax.fori_loop`` inside the program, and the cost-to-go
+(P, p) is a loop value — programs run in parallel and in no order, so
+nothing is carried between them.  Each stage's blocks are loaded as
+power-of-two tiles (masked loads of the unpadded arrays; the padding
+reads as zero), products are tile ``dot``s at "highest" precision (no
+TF32), and Huu is inverted by Gauss-Jordan over its nu real pivots (the
+padded diagonal reads as identity).
 """
 
 from __future__ import annotations
@@ -36,1885 +34,565 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+HIGHEST = jax.lax.Precision.HIGHEST
+
+# Largest state width the kernel takes; above it the XLA sweep is used
+# (the rule is set by measurement on the H100: see choose_impl).
+KERNEL_MAX_NX = 64
+
+IMPLS = ("triton", "interpret", "xla")
 
 
-# --------------------------------------------------------------- lane algebra
-# Value-level helpers on (m, n, B) / (n, B) arrays inside a kernel.
-# Python loops are over *static* matrix dims (<= ~40), emitting
-# broadcast VPU ops of shape (rows, B).
+def choose_impl(nx: int, impl: str | None = None) -> str:
+    """The one place that picks a sweep implementation.
 
-def _mm(X, Y):
-    """(m, n, B) @ (n, p, B) -> (m, p, B), lane-batched."""
-    m, n, _ = X.shape
-    rows = []
-    for i in range(m):
-        acc = X[i, 0][None, :] * Y[0]
-        for j in range(1, n):
-            acc = acc + X[i, j][None, :] * Y[j]
-        rows.append(acc)
-    return jnp.stack(rows, axis=0)
-
-
-def _mtm(X, Y):
-    """X^T Y: (k, m, B), (k, p, B) -> (m, p, B), lane-batched."""
-    k, m, _ = X.shape
-    rows = []
-    for i in range(m):
-        acc = X[0, i][None, :] * Y[0]
-        for j in range(1, k):
-            acc = acc + X[j, i][None, :] * Y[j]
-        rows.append(acc)
-    return jnp.stack(rows, axis=0)
-
-
-def _mv(X, v):
-    """(m, n, B) @ (n, B) -> (m, B).
-
-    Vectorized over the row dim: the naive per-row formulation emits
-    m*n FMAs on (B,) operands — single-sublane ops at 1/8 VPU
-    utilization.  One (m, n, B) elementwise product plus a sublane-axis
-    reduction issues ~4x fewer vector instructions (measured; the
-    vector-only cached ADMM sweep is dominated by these)."""
-    return jnp.sum(X * v[None, :, :], axis=1)
-
-
-def _mtv(X, v):
-    """X^T v: (n, m, B), (n, B) -> (m, B).
-
-    Vectorized like _mv, but the contraction axis is the *leading*
-    (loop) dim, so the reduction is n-1 full-tile (m, B) adds — the
-    cheapest shape of the four helpers."""
-    n = X.shape[0]
-    acc = X[0] * v[0][None, :]
-    for j in range(1, n):
-        acc = acc + X[j] * v[j][None, :]
-    return acc
-
-
-def _sym_rows(base, pairs):
-    """Upper-triangle rows of base + sum_k Xk^T Yk (symmetric result).
-
-    Row i covers columns i..m-1 only — each FMA runs on a (m-i, B)
-    tile instead of (m, B), cutting ~45% of the FMA work of the
-    full-product-then-symmetrize pattern (the reference's CPU kernel
-    exploits the same symmetry via rankUpdate, lqr_kernel.hpp:121-126).
-    Returns a list: up[i] is (m-i, B).
+    ``impl`` given: used as is ("triton", "xla", or "interpret" — the
+    Triton kernel under the Pallas interpreter, for tests).  Otherwise
+    by the default backend: on "gpu" the Triton kernel for nx <=
+    KERNEL_MAX_NX and XLA above it; on "cpu" XLA; any other platform
+    raises.
     """
-    m = base.shape[0]
-    up = []
-    for i in range(m):
-        acc = base[i, i:]
-        for X, Y in pairs:
-            for t in range(X.shape[0]):
-                acc = acc + X[t, i][None, :] * Y[t, i:]
-        up.append(acc)
-    return up
+    if impl is not None:
+        if impl not in IMPLS:
+            raise ValueError(f"unknown sweep impl {impl!r}; one of {IMPLS}")
+        return impl
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return "triton" if nx <= KERNEL_MAX_NX else "xla"
+    if backend == "cpu":
+        return "xla"
+    raise RuntimeError(
+        f"no Riccati sweep for platform {backend!r} (gpu or cpu only)")
 
 
-def _sym_mirror(up):
-    """Assemble the full (m, m, B) matrix from upper-triangle rows.
-
-    Row i below the diagonal is read back from previously computed rows
-    (entry (i, j), j < i equals up[j][i - j]) — copies, not FMAs, and
-    it replaces the old explicit 0.5 * (P + P^T) symmetrization (whose
-    sublane transpose was itself not free)."""
-    m = len(up)
-    rows = [up[0]]
-    for i in range(1, m):
-        parts = [up[j][i - j][None, :] for j in range(i)]
-        parts.append(up[i])
-        rows.append(jnp.concatenate(parts, axis=0))
-    return jnp.stack(rows, axis=0)
+def _tile(n: int) -> int:
+    """Tile edge for a matrix dimension: a power of two, at least 16
+    (the smallest ``dot`` operand on this route)."""
+    return max(16, 1 << (n - 1).bit_length())
 
 
-def _mtm_sym(pairs, base):
-    """base + sum_k Xk^T Yk for a symmetric result (exactly symmetric
-    by construction — upper triangle computed, lower mirrored)."""
-    return _sym_mirror(_sym_rows(base, pairs))
+def _width(*xs):
+    """Batch width of a set of batch-leading arrays (1 if all shared)."""
+    ws = {x.shape[0] for x in xs if x is not None}
+    ws.discard(1)
+    if len(ws) > 1:
+        raise ValueError(f"inconsistent batch widths {sorted(ws)}")
+    return ws.pop() if ws else 1
 
 
-def _mm_sym_sub(X, Y, base):
-    """base - X @ Y for a symmetric result; upper triangle + mirror."""
-    m = base.shape[0]
-    n = X.shape[1]
-    up = []
-    for i in range(m):
-        acc = base[i, i:]
-        for t in range(n):
-            acc = acc - X[i, t][None, :] * Y[t, i:]
-        up.append(acc)
-    return _sym_mirror(up)
+# ------------------------------------------------------- in-kernel algebra
+
+def _iota(shape, dim):
+    return jax.lax.broadcasted_iota(jnp.int32, shape, dim)
 
 
-def _low_rows(base, X, Y):
-    """Lower-triangle rows of base + X^T Y (symmetric): low[i] is
-    (i+1, B) covering columns 0..i.  Cholesky only ever reads the
-    lower triangle, so the upper half of Huu is never computed."""
-    k, m, _ = X.shape
-    low = []
-    for i in range(m):
-        acc = base[i, : i + 1]
-        for t in range(k):
-            acc = acc + X[t, i][None, :] * Y[t, : i + 1]
-        low.append(acc)
-    return low
+def _mask(spans):
+    shape = tuple(t for _, _, t in spans)
+    mask = None
+    for ax, (_, size, _) in enumerate(spans):
+        m = _iota(shape, ax) < size
+        mask = m if mask is None else mask & m
+    return mask
 
 
-def _chol_lanes(M):
-    """Unrolled lane-batched Cholesky; returns list-of-lists.
+def _zero():
+    """A traced 0 of the default integer type (the loop index's)."""
+    return (0 * pl.program_id(0)).astype(
+        jax.dtypes.canonicalize_dtype(jnp.int64))
 
-    ``M`` is either a (n, n, B) array or a list of lower-triangle rows
-    (from _low_rows) — only the lower triangle is ever read."""
-    if isinstance(M, list):
-        n = len(M)
-        get = lambda i, j: M[i][j]
-    else:
-        n = M.shape[0]
-        get = lambda i, j: M[i, j]
-    L = [[None] * n for _ in range(n)]
+
+def _tiles(zero):
+    """Masked tile load/store over the trailing axes of a ref.
+
+    ``spans`` is ((offset, size, tile), ...); a tile may run past the
+    end of its axis, and entries beyond ``size`` read as zero and are
+    not written.  A nonzero static offset would fail the indexer's
+    static bounds check, so offsets are shifted by ``zero``, a traced
+    0 taken at the kernel's top level."""
+    def slices(spans):
+        return tuple(pl.ds(off + zero if off else 0, t)
+                     for off, _, t in spans)
+
+    def ld(ref, idx, spans):
+        return plgpu.load(ref.at[idx + slices(spans)], mask=_mask(spans),
+                          other=0.0)
+
+    def st(ref, idx, spans, val):
+        plgpu.store(ref.at[idx + slices(spans)], val.astype(ref.dtype),
+                    mask=_mask(spans))
+
+    return ld, st
+
+
+# Tile products: a ``dot`` at full precision in float32; float64 has no
+# ``dot`` on this route for these shapes (the card refuses its MMA), so
+# it multiplies by broadcast-and-sum.
+
+def _mm(a, b):
+    """a @ b on tiles."""
+    if a.dtype == jnp.float64:
+        return jnp.sum(a[:, :, None] * b[None, :, :], axis=1)
+    return jax.lax.dot_general(a, b, (((1,), (0,)), ((), ())),
+                               precision=HIGHEST,
+                               preferred_element_type=a.dtype)
+
+
+def _mtm(a, b):
+    """a^T @ b on tiles."""
+    if a.dtype == jnp.float64:
+        return jnp.sum(a[:, :, None] * b[:, None, :], axis=0)
+    return jax.lax.dot_general(a, b, (((0,), (0,)), ((), ())),
+                               precision=HIGHEST,
+                               preferred_element_type=a.dtype)
+
+
+def _mv(m, v):
+    return jnp.sum(m * v[None, :], axis=1)
+
+
+def _mtv(m, v):
+    return jnp.sum(m * v[:, None], axis=0)
+
+
+def _inverse(M, n):
+    """Gauss-Jordan inverse of an SPD tile whose padding (beyond the
+    first ``n`` rows/cols) is the identity; n static pivots.  NaN if
+    the tile is not positive definite."""
+    T = M.shape[0]
+    r2, c2 = _iota((T, T), 0), _iota((T, T), 1)
+    i1 = _iota((T,), 0)
+    inv = jnp.where(r2 == c2, 1.0, 0.0).astype(M.dtype)
+    min_piv = None
     for j in range(n):
-        s = get(j, j)
-        for t in range(j):
-            s = s - L[j][t] * L[j][t]
-        L[j][j] = jnp.sqrt(s)
-        inv = 1.0 / L[j][j]
-        for i in range(j + 1, n):
-            s = get(i, j)
-            for t in range(j):
-                s = s - L[i][t] * L[j][t]
-            L[i][j] = s * inv
-    return L
+        row_m = jnp.sum(jnp.where(r2 == j, M, 0.0), axis=0)
+        row_i = jnp.sum(jnp.where(r2 == j, inv, 0.0), axis=0)
+        col = jnp.where(i1 == j, 0.0, jnp.sum(jnp.where(c2 == j, M, 0.0),
+                                              axis=1))
+        piv = jnp.sum(jnp.where(i1 == j, row_m, 0.0))
+        min_piv = piv if min_piv is None else jnp.minimum(min_piv, piv)
+        row_m, row_i = row_m * (1.0 / piv), row_i * (1.0 / piv)
+        M = jnp.where(r2 == j, row_m[None, :], M - col[:, None] * row_m)
+        inv = jnp.where(r2 == j, row_i[None, :], inv - col[:, None] * row_i)
+    # A non-positive pivot means Huu is not positive definite: NaN, as a
+    # Cholesky factorization gives (solvers/recovery keys on it).  One
+    # select after the loop: a select per pivot slowed the 64-wide
+    # kernel ~9x at one batch size on the H100.
+    return jnp.where(min_piv > 0.0, inv, jnp.nan)
 
 
-def _chol_solve_lanes(L, b_rows):
-    """Solve (L L^T) x = b for one rhs given as list of n (B,) rows."""
-    n = len(L)
-    y = [None] * n
-    for i in range(n):
-        s = b_rows[i]
-        for t in range(i):
-            s = s - L[i][t] * y[t]
-        y[i] = s / L[i][i]
-    x = [None] * n
-    for i in range(n - 1, -1, -1):
-        s = y[i]
-        for t in range(i + 1, n):
-            s = s - L[t][i] * x[t]
-        x[i] = s / L[i][i]
-    return x
+# --------------------------------------------------------------- kernels
 
-
-def _chol_solve_rows(L, b_rows):
-    """Multi-rhs (L L^T) X = B with B as a list of n (k, B) row-blocks.
-
-    The per-column formulation issues every substitution step as a
-    single-sublane (B,) FMA; batching all k right-hand sides into one
-    (k, B) tile per step does the same substitutions at full sublane
-    utilization (this is the K = -Huu^{-1} [G rbar] solve in the sweep
-    kernels).  Divisions are hoisted to one reciprocal per pivot."""
-    n = len(L)
-    inv = [1.0 / L[i][i] for i in range(n)]
-    y = [None] * n
-    for i in range(n):
-        s = b_rows[i]
-        for t in range(i):
-            s = s - L[i][t][None, :] * y[t]
-        y[i] = s * inv[i][None, :]
-    x = [None] * n
-    for i in range(n - 1, -1, -1):
-        s = y[i]
-        for t in range(i + 1, n):
-            s = s - L[t][i][None, :] * x[t]
-        x[i] = s * inv[i][None, :]
-    return x
-
-
-# ------------------------------------------------------------ backward kernel
-
-def _backward_kernel(nu, nx, nc, export, emit_mv, T,
-                     A_ref, B_ref, c_ref, H_ref, h_ref, D_ref, rho_ref,
-                     rg_ref, PN_ref, pN_ref,
-                     K_ref, d_ref, *rest):
-    # Grid is (lane_chunk, time-block); time is the minor (fast)
-    # dimension so each chunk runs its full backward sweep before the
-    # next chunk.  Each grid step covers T consecutive stages (one
-    # streamed block), iterated in reverse in-register — fewer, larger
-    # DMAs amortize the per-grid-step pipeline overhead that dominates
-    # at one stage per step (see docs/KERNEL_DESIGN.md roofline).
-    # ``export`` additionally writes the per-stage factor pair
-    # (P_{k+1}, chol(Huu)) consumed by the cached-factor vector sweep
-    # (backward_vectors_lanes) — the reference's
-    # step_without_factorization split (lqr_kernel.hpp:93-101,149-178).
-    # ``emit_mv=False`` skips the closed-loop maps (M = A + B K,
-    # v = B d + c) entirely — forward_rollout_lanes recomputes the
-    # rollout from the raw (A, B, c) stream instead, cutting the
-    # bottleneck sweep's FLOPs and its HBM writes by ~2/3.
-    if emit_mv:
-        M_ref, v_ref, *rest = rest
+def _backward_kernel(N, nx, nu, nc, export, *refs):
+    _ld, _st = _tiles(_zero())
+    X, U, C = _tile(nx), _tile(nu), _tile(max(nc, 1))
+    n_in = 10 if nc else 7
+    ins, outs = refs[:n_in], refs[n_in:]
+    if nc:
+        A_r, B_r, c_r, H_r, h_r, D_r, rho_r, rg_r, PN_r, pN_r = ins
     else:
-        M_ref = v_ref = None
-    if export:
-        P_ref, L_ref, P_scr, p_scr = rest
-    else:
-        P_scr, p_scr = rest
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        P_scr[:] = PN_ref[:]
-        p_scr[:] = pN_ref[:]
-
-    # Stage data may be stored in a narrower dtype (bf16) than the
-    # compute/carry dtype — upcast at load so HBM streaming is halved
-    # while all arithmetic stays in the carry precision.
-    cdt = P_scr.dtype
-    P = P_scr[:]
-    p = p_scr[:]
-
-    for i in range(T - 1, -1, -1):
-        A = A_ref[i].astype(cdt)
-        Bm = B_ref[i].astype(cdt)
-        c = c_ref[i].astype(cdt)
-        H = H_ref[i].astype(cdt)
-        h = h_ref[i].astype(cdt)
-
-        # Penalty fold (lqr_kernel.hpp:106-112), in-register:
-        #   H += sum_c rho_c D_c D_c^T ;  h -= sum_c (rho_c g_c) D_c
-        if nc > 0:
-            D = D_ref[i].astype(cdt)
-            rho = rho_ref[i].astype(cdt)
-            rg = rg_ref[i].astype(cdt)
-            for ci in range(nc):
-                w = rho[ci] * D[ci]              # (nz, B)
-                rows = []
-                for r_i in range(H.shape[0]):
-                    rows.append(H[r_i] + D[ci, r_i][None, :] * w)
-                H = jnp.stack(rows, axis=0)
-                h = h - rg[ci][None, :] * D[ci]
-
-        R = H[:nu, :nu]
-        S = H[:nu, nu:]
-        Q = H[nu:, nu:]
-        r = h[:nu]
-        q = h[nu:]
-
-        PA = _mm(P, A)                    # (nx, nx, B)
-        PB = _mm(P, Bm)                   # (nx, nu, B)
-        Pcp = _mv(P, c) + p               # (nx, B)
-
-        G = S + _mtm(Bm, PA)              # (nu, nx, B)
-        rbar = r + _mtv(Bm, Pcp)          # (nu, B)
-
-        # Huu = R + B^T P B, lower triangle only (all chol reads).
-        L = _chol_lanes(_low_rows(R, Bm, PB))
-        # [K d] = -Huu^{-1} [G rbar]: one multi-rhs solve on (nx+1, B)
-        # row tiles instead of nx+1 single-lane column solves.
-        sol = _chol_solve_rows(
-            L,
-            [jnp.concatenate([G[gi], rbar[gi][None, :]], axis=0)
-             for gi in range(nu)],
-        )
-        K = -jnp.stack([sol[gi][:nx] for gi in range(nu)], axis=0)
-        d = -jnp.stack([sol[gi][nx] for gi in range(nu)], axis=0)
-
-        # P+ = Q + A^T PA + G^T K: symmetric — upper triangle + mirror.
-        Pn = _mtm_sym([(A, PA), (G, K)], Q)
-        pn = q + _mtv(A, Pcp) + _mtv(K, rbar)
-
-        K_ref[i] = K
-        d_ref[i] = d
-        if emit_mv:
-            M_ref[i] = A + _mm(Bm, K)
-            v_ref[i] = _mv(Bm, d) + c
-        if export:
-            P_ref[i] = P
-            L_ref[i] = jnp.stack([
-                jnp.stack([
-                    L[li][lj] if lj <= li else jnp.zeros_like(P[0, 0])
-                    for lj in range(nu)
-                ], axis=0)
-                for li in range(nu)
-            ], axis=0)
-        P = Pn
-        p = pn
-
-    P_scr[:] = P
-    p_scr[:] = p
-
-
-# -------------------------------------------------- PDP segment kernel
-
-def _backward_pdp_kernel(nu, nx, nc, export,
-                         A_ref, B_ref, c_ref, H_ref, h_ref, D_ref,
-                         rho_ref, rg_ref, Pi_ref, pi_ref, Fi_ref,
-                         Ci_ref, fi_ref,
-                         K_ref, d_ref, M_ref, v_ref, G_ref, *rest):
-    """Backward sweep + PDP segment-coupling propagation, P-form.
-
-    Reference math: ParallelLQRKernel::step_with_factorization
-    (lqr_kernel_parallel.hpp:87-136) recast without Cholesky factors:
-
-      Gp = -Huu^{-1} B^T F+^T          (u-correction: u = Kx + d + Gp uhat;
-                                        the reference's G = Luu^{-1}... obeys
-                                        Luu^{-T} G = Gp)
-      F  = F+ (A + B K)                closed-loop transition
-      f  = F+ (B d + c) + f+           offset
-      C  = C+ + G^T G = C+ - (F+ B) Gp Gram accumulation
-
-    Per-segment boundary exports (P0, p0, F0, C0, f0 — the reference's
-    update_segment_data payload, lqr_solver_parallel.hpp:182-187) are
-    written on the final (stage-0) grid step of each lane chunk.
-
-    ``export`` additionally writes the per-stage iterate-independent
-    factors (P_{k+1}, chol(Huu), F_{k+1}) consumed by the cached-factor
-    segment vector sweep (_backward_pdp_vec_kernel) — the parallel
-    solver's with/without-factorization split
-    (lqr_solver_parallel.hpp:148-154,190-211).
-    """
-    if export:
-        (P_ref, L_ref, F_ref,
-         P0_ref, p0_ref, F0_ref, C0_ref, f0_ref,
-         P_scr, p_scr, F_scr, C_scr, f_scr) = rest
-    else:
-        (P0_ref, p0_ref, F0_ref, C0_ref, f0_ref,
-         P_scr, p_scr, F_scr, C_scr, f_scr) = rest
-    t = pl.program_id(1)
-    n_time = pl.num_programs(1)
-
-    @pl.when(t == 0)
-    def _():
-        P_scr[:] = Pi_ref[:]
-        p_scr[:] = pi_ref[:]
-        F_scr[:] = Fi_ref[:]
-        C_scr[:] = Ci_ref[:]
-        f_scr[:] = fi_ref[:]
-
-    A = A_ref[0]
-    Bm = B_ref[0]
-    c = c_ref[0]
-    H = H_ref[0]
-    h = h_ref[0]
-    if nc > 0:
-        D = D_ref[0]
-        rho = rho_ref[0]
-        rg = rg_ref[0]
-        for ci in range(nc):
-            w = rho[ci] * D[ci]
-            rows = []
-            for i in range(H.shape[0]):
-                rows.append(H[i] + D[ci, i][None, :] * w)
-            H = jnp.stack(rows, axis=0)
-            h = h - rg[ci][None, :] * D[ci]
-
-    R = H[:nu, :nu]
-    S = H[:nu, nu:]
-    Q = H[nu:, nu:]
-    r = h[:nu]
-    q = h[nu:]
-
-    P = P_scr[:]
-    p = p_scr[:]
-    F = F_scr[:]
-    C = C_scr[:]
-    f = f_scr[:]
-
-    PA = _mm(P, A)
-    PB = _mm(P, Bm)
-    Pcp = _mv(P, c) + p
-    G = S + _mtm(Bm, PA)
-    rbar = r + _mtv(Bm, Pcp)
-
-    L = _chol_lanes(_low_rows(R, Bm, PB))
-    FB = _mm(F, Bm)                       # F+ B (nx, nu, B)
-    # [K Gp d] = -Huu^{-1} [G (F+ B)^T rbar]: one multi-rhs solve on
-    # (2nx+1, B) row tiles instead of 2nx+1 single-lane column solves.
-    sol = _chol_solve_rows(
-        L,
-        [jnp.concatenate([G[gi], FB[:, gi], rbar[gi][None, :]], axis=0)
-         for gi in range(nu)],
-    )
-    K = -jnp.stack([sol[gi][:nx] for gi in range(nu)], axis=0)
-    Gp = -jnp.stack([sol[gi][nx:2 * nx] for gi in range(nu)], axis=0)
-    d = -jnp.stack([sol[gi][2 * nx] for gi in range(nu)], axis=0)
-
-    Pn = _mtm_sym([(A, PA), (G, K)], Q)
-    pn = q + _mtv(A, Pcp) + _mtv(K, rbar)
-
-    Mcl = A + _mm(Bm, K)
-    vcl = _mv(Bm, d) + c
-    Fn = _mm(F, Mcl)
-    fn = _mv(F, vcl) + f
-    # C+ = C - (F+ B) Gp: symmetric Gram accumulation, triangle + mirror.
-    Cn = _mm_sym_sub(FB, Gp, C)
-
-    K_ref[0] = K
-    d_ref[0] = d
-    M_ref[0] = Mcl
-    v_ref[0] = vcl
-    G_ref[0] = Gp
-    if export:
-        P_ref[0] = P
-        F_ref[0] = F
-        L_ref[0] = jnp.stack([
-            jnp.stack([
-                L[li][lj] if lj <= li else jnp.zeros_like(P[0, 0])
-                for lj in range(nu)
-            ], axis=0)
-            for li in range(nu)
-        ], axis=0)
-    P_scr[:] = Pn
-    p_scr[:] = pn
-    F_scr[:] = Fn
-    C_scr[:] = Cn
-    f_scr[:] = fn
-
-    @pl.when(t == n_time - 1)
-    def _():
-        P0_ref[:] = Pn
-        p0_ref[:] = pn
-        F0_ref[:] = Fn
-        C0_ref[:] = Cn
-        f0_ref[:] = fn
-
-
-def backward_pdp_lanes(A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi, *,
-                       interpret=False, export_factors=False):
-    """Fused PDP segment reduction; all arrays batch-last.
-
-    Stage arrays as in ``backward_lanes``; (Pi, pi, Fi, Ci, fi) are the
-    per-segment initial carries ((nx,nx,B)/(nx,B) etc.): the last
-    segment passes the folded terminal cost-to-go with F=I, C=f=0;
-    non-last segments pass P=0, p=0, F=I, C=0, f=0
-    (lqr_kernel_parallel.hpp:51-67 in P-form).
-
-    Returns (K, d, M, v, Gp, P0, p0, F0, C0, f0); with
-    ``export_factors`` additionally (P, L, F) — the per-stage
-    P_{k+1}, chol(Huu), F_{k+1} consumed by
-    backward_pdp_vectors_lanes while rho is unchanged (the parallel
-    solver's with/without-factorization split,
-    lqr_solver_parallel.hpp:148-154,190-211).
-    """
-    N, nx, _, Bt = A.shape
-    nu = B.shape[2]
-    nz = nx + nu
-    nc = D.shape[1]
-    dt = A.dtype
-
-    if nc == 0:
-        D = jnp.zeros((N, 1, nz, Bt), dt)
-        rho = jnp.zeros((N, 1, Bt), dt)
-        rg = jnp.zeros((N, 1, Bt), dt)
-
-    ncp = max(nc, 1)
-    words = (nx * nx + nx * nu + nx + nz * nz + nz + ncp * nz + 2 * ncp
-             + 2 * (nu * nx) + nu + nx * nx + nx
-             + 5 * (3 * nx * nx + 2 * nx)
-             + (2 * nx * nx + nu * nu if export_factors else 0))
-    chunk = _pick_chunk(Bt, words, 16 * nz * nz, jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-
-    stage = lambda *dims: pl.BlockSpec(
-        (1,) + dims[:-1] + (chunk,),
-        lambda b, t: (N - 1 - t,) + (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_backward_pdp_kernel, nu, nx, nc,
-                               export_factors)
-    mat = lambda: jax.ShapeDtypeStruct((nx, nx, Bt), dt)
-    vec = lambda: jax.ShapeDtypeStruct((nx, Bt), dt)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, nx, Bt), dt),   # K
-        jax.ShapeDtypeStruct((N, nu, Bt), dt),       # d
-        jax.ShapeDtypeStruct((N, nx, nx, Bt), dt),   # M
-        jax.ShapeDtypeStruct((N, nx, Bt), dt),       # v
-        jax.ShapeDtypeStruct((N, nu, nx, Bt), dt),   # Gp
-    )
-    out_specs = (
-        stage(nu, nx, Bt), stage(nu, Bt),
-        stage(nx, nx, Bt), stage(nx, Bt), stage(nu, nx, Bt),
-    )
-    if export_factors:
-        out_shape = out_shape + (
-            jax.ShapeDtypeStruct((N, nx, nx, Bt), dt),   # P_{k+1}
-            jax.ShapeDtypeStruct((N, nu, nu, Bt), dt),   # chol(Huu)
-            jax.ShapeDtypeStruct((N, nx, nx, Bt), dt),   # F_{k+1}
-        )
-        out_specs = out_specs + (
-            stage(nx, nx, Bt), stage(nu, nu, Bt), stage(nx, nx, Bt),
-        )
-    out_shape = out_shape + (mat(), vec(), mat(), mat(), vec())
-    out_specs = out_specs + (
-        whole(nx, nx, Bt), whole(nx, Bt), whole(nx, nx, Bt),
-        whole(nx, nx, Bt), whole(nx, Bt),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N),
-        in_specs=[
-            stage(nx, nx, Bt), stage(nx, nu, Bt), stage(nx, Bt),
-            stage(nz, nz, Bt), stage(nz, Bt),
-            stage(ncp, nz, Bt), stage(ncp, Bt), stage(ncp, Bt),
-            whole(nx, nx, Bt), whole(nx, Bt), whole(nx, nx, Bt),
-            whole(nx, nx, Bt), whole(nx, Bt),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((nx, nx, chunk), dt), pltpu.VMEM((nx, chunk), dt),
-            pltpu.VMEM((nx, nx, chunk), dt),
-            pltpu.VMEM((nx, nx, chunk), dt), pltpu.VMEM((nx, chunk), dt),
-        ],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(A, B, c, H, h, D, rho, rg, Pi, pi, Fi, Ci, fi)
-
-
-def _backward_pdp_vec_kernel(nu, nx, T,
-                             A_ref, B_ref, c_ref, hf_ref, P_ref, K_ref,
-                             L_ref, F_ref, pi_ref,
-                             d_ref, v_ref, p0_ref, f0_ref,
-                             p_scr, f_scr):
-    """Vector-only PDP segment sweep on cached factors.
-
-    The parallel solver's ``backward_without_factorization``
-    (lqr_solver_parallel.hpp:190-211): while rho is unchanged, the
-    segment matrices (P, chol(Huu), K, M, F, C, Gp) are
-    iterate-independent; only the affine recursion moves.  Per stage
-    (P = P_{k+1}, F = F_{k+1} from backward_pdp_lanes export):
-
-      Pcp  = P c + p
-      rbar = hf[:nu] + B^T Pcp
-      d    = -(L L^T)^{-1} rbar
-      v    = B d + c
-      p    = hf[nu:] + A^T Pcp + K^T rbar      (carry)
-      f    = F v + f                            (segment offset carry)
-
-    Boundary vectors (p0, f0) — the vector half of the
-    update_segment_data payload — are exported on the final grid step;
-    the C/P/F matrix half is cached with the condensed factorization.
-    """
-    t = pl.program_id(1)
-    n_time = pl.num_programs(1)
-
-    @pl.when(t == 0)
-    def _():
-        p_scr[:] = pi_ref[:]
-        f_scr[:] = jnp.zeros_like(f_scr)
-
-    p = p_scr[:]
-    f = f_scr[:]
-    for i in range(T - 1, -1, -1):
-        A = A_ref[i]
-        Bm = B_ref[i]
-        c = c_ref[i]
-        hf = hf_ref[i]
-        P = P_ref[i]
-        K = K_ref[i]
-        Lt = L_ref[i]
-        F = F_ref[i]
-        L = [[Lt[li, lj] if lj <= li else None for lj in range(nu)]
-             for li in range(nu)]
-
-        Pcp = _mv(P, c) + p
-        rbar = hf[:nu] + _mtv(Bm, Pcp)
-        d = -jnp.stack(
-            _chol_solve_lanes(L, [rbar[ri] for ri in range(nu)]), axis=0
-        )
-        v = _mv(Bm, d) + c
-        d_ref[i] = d
-        v_ref[i] = v
-        p = hf[nu:] + _mtv(A, Pcp) + _mtv(K, rbar)
-        f = _mv(F, v) + f
-    p_scr[:] = p
-    f_scr[:] = f
-
-    @pl.when(t == n_time - 1)
-    def _():
-        p0_ref[:] = p
-        f0_ref[:] = f
-
-
-def backward_pdp_vectors_lanes(A, B, c, hf, P, K, L, F, pi, *,
-                               interpret=False):
-    """Cached-factor PDP segment vector sweep.
-
-    (P, K, L, F) from backward_pdp_lanes(export_factors=True); hf the
-    fully iterate-folded linear cost (h - sigma w - D^T rho g); pi the
-    iterate-folded terminal linear cost (zeros on non-last segments).
-    Returns (d (N,nu,B), v (N,nx,B), p0 (nx,B), f0 (nx,B)).
-    """
-    N = A.shape[0]
-    nx = A.shape[1]
-    nu = B.shape[2]
-    Bt = c.shape[-1]
-    nz = nx + nu
-    dt = P.dtype
-
-    words = (_vec_sweep_words(nx, nu, nz)
-             + nx * nx + nx * nx + nx)    # + F stream, f carry, v out
-    chunk = _pick_chunk(Bt, words, 8 * nx * nx, jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 8 * nx * nx, chunk,
-                     jnp.dtype(dt).itemsize)
-
-    stage = lambda *dims: pl.BlockSpec(
-        (T,) + dims[:-1] + (chunk,),
-        lambda b, t: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_backward_pdp_vec_kernel, nu, nx, T)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N // T),
-        in_specs=[
-            stage(nx, nx, Bt), stage(nx, nu, Bt), stage(nx, Bt),
-            stage(nz, Bt),
-            stage(nx, nx, Bt), stage(nu, nx, Bt), stage(nu, nu, Bt),
-            stage(nx, nx, Bt),
-            whole(nx, Bt),
-        ],
-        out_specs=(
-            stage(nu, Bt), stage(nx, Bt),
-            whole(nx, Bt), whole(nx, Bt),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((N, nu, Bt), dt),
-            jax.ShapeDtypeStruct((N, nx, Bt), dt),
-            jax.ShapeDtypeStruct((nx, Bt), dt),
-            jax.ShapeDtypeStruct((nx, Bt), dt),
-        ),
-        scratch_shapes=[pltpu.VMEM((nx, chunk), dt),
-                        pltpu.VMEM((nx, chunk), dt)],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(A, B, c, hf, P, K, L, F, pi)
-
-
-LANE_CHUNK = 512        # max lanes per grid step
-VMEM_BUDGET = 12 << 20  # streamed blocks + live temporaries per chunk
-STAGE_BLOCK_BUDGET = 36 << 20  # T-stage streamed block budget (< 48 MB
-#   scoped limit, slack for unmodeled live temporaries)
-MAX_STAGE_BLOCK = 8     # cap on stages per grid step.  The kernel body
-#   unrolls T stage bodies, so trace/compile cost scales with T —
-#   tests/conftest.py pins this to 1 on CPU (interpret-mode compiles
-#   are the suite's dominant cost; T-blocking has a dedicated test).
-
-
-def _pick_stages(N: int, words_per_stage: int, temp_words: int,
-                 chunk: int, dtype_bytes: int) -> int:
-    """Stages per grid step (T): largest T dividing N whose
-    double-buffered T-stage streamed block fits STAGE_BLOCK_BUDGET.
-
-    At T=1 the sweep kernels sit ~4x above BOTH roofline bounds
-    (docs/KERNEL_DESIGN.md): the per-grid-step pipeline overhead
-    (semaphores, window swaps, scalar setup) dominates the ~us-scale
-    per-stage compute.  T consecutive stages per streamed block cut the
-    step count T-fold at unchanged math.
-    """
-    for T in (8, 4, 2):
-        if T > MAX_STAGE_BLOCK:
-            continue
-        est = (2 * T * words_per_stage + temp_words) * chunk * dtype_bytes
-        if N % T == 0 and est <= STAGE_BLOCK_BUDGET:
-            return T
-    return 1
-
-
-def _pick_chunk(Bt: int, words_per_lane: int, temp_words: int,
-                dtype_bytes: int, budget: int | None = None) -> int:
-    """Largest chunk <= LANE_CHUNK fitting the VMEM budget.
-
-    Budget covers the double-buffered streamed stage blocks plus an
-    allowance for the kernel's live (matrix, chunk) temporaries —
-    measured to overflow the 16 MB scoped limit at nx=40 without it.
-    Problem dims vary: quadrotor nz=16 runs 512 lanes; mass-spring
-    nz=50 drops to 64 (lane tiles pad below 128 — wasteful but
-    correct, and large-state stages have ample per-lane work).
-
-    ``budget`` overrides VMEM_BUDGET for kernels whose word estimate
-    already models their large scratch explicitly (the fused ADMM
-    iteration's (K, d) gain spill) and that run under the raised 48 MB
-    scoped-vmem limit (_compiler_params): the 12 MB default is a
-    heuristic allowance for unmodeled temporaries, and letting it force
-    a half-size lane chunk costs ~2x throughput on the MXU.
-    """
-    if budget is None:
-        budget = VMEM_BUDGET
-    # Candidates derive from LANE_CHUNK (not a hardcoded list) so tests
-    # can shrink it and genuinely exercise the multi-chunk path.
-    for chunk in (LANE_CHUNK, LANE_CHUNK // 2, LANE_CHUNK // 4):
-        if chunk <= 0 or chunk > Bt or Bt % chunk != 0:
-            continue
-        est = (2 * words_per_lane + temp_words) * chunk * dtype_bytes
-        if est <= budget:
-            return chunk
-    # 128 is the hardware floor for a lane-dim block; rely on the
-    # raised vmem limit (see _compiler_params) for very large states.
-    floor = min(LANE_CHUNK, 128)
-    return floor if (Bt % floor == 0 and Bt >= floor) else Bt
-
-
-def _compiler_params(interpret: bool):
-    if interpret:
-        return None
-    # Default scoped-vmem limit is 16 MB; large-state kernels (nz ~ 50)
-    # at the 128-lane floor need slightly more for live temporaries.
-    return pltpu.CompilerParams(vmem_limit_bytes=48 * 1024 * 1024)
-
-
-def backward_lanes(A, B, c, H, h, D, rho, rg, PN, pN, *, interpret=False,
-                   export_factors=False, emit_closed_loop=True):
-    """Fused backward sweep; all arrays batch-last (see module doc).
-
-    A (N,nx,nx,B), B (N,nx,nu,B), c (N,nx,B), H (N,nz,nz,B),
-    h (N,nz,B), D (N,nc,nz,B), rho/rg (N,nc,B), PN (nx,nx,B), pN (nx,B)
-    — H/h/D/rho/rg are the non-terminal stage rows; PN/pN is the
-    already-folded terminal cost-to-go.
-
-    Batches larger than LANE_CHUNK are processed in lane chunks via a
-    second (major) grid dimension — the (P, p) scratch carry resets at
-    the start of each chunk's backward sweep, and per-stage VMEM stays
-    bounded regardless of B.
-
-    Returns (K, d, M, v): gains and closed-loop maps per stage; with
-    ``export_factors`` additionally (P, L) — the per-stage cost-to-go
-    P_{k+1} and chol(Huu) consumed by backward_vectors_lanes while rho
-    is unchanged (the reference's with/without-factorization split,
-    lqr_kernel.hpp:93-101).  ``emit_closed_loop=False`` returns only
-    (K, d)[, P, L]: the closed-loop maps are neither computed nor
-    written (pair with forward_rollout_lanes, which streams the raw
-    (A, B, c) instead — the bottleneck-sweep FLOP/write saving).
-    """
-    N, nx, _, Bt = A.shape
-    nu = B.shape[2]
-    nz = nx + nu
-    nc = D.shape[1]
-    # Compute/output dtype comes from the terminal carry (f32/f64);
-    # stage data may be narrower (bf16 storage mode).
-    dt = PN.dtype
-    sdt = A.dtype
-
-    if nc == 0:
-        # Pallas blocks cannot be zero-sized; stream one dummy row
-        # (statically skipped by the kernel via its nc argument).
-        D = jnp.zeros((N, 1, nz, Bt), sdt)
-        rho = jnp.zeros((N, 1, Bt), sdt)
-        rg = jnp.zeros((N, 1, Bt), sdt)
-
-    ncp = max(nc, 1)
-    words = (nx * nx + nx * nu + nx + nz * nz + nz + ncp * nz + 2 * ncp
-             + nu * nx + nu + nx * nx + nx + 2 * (nx * nx + nx)
-             + (nx * nx + nu * nu if export_factors else 0))
-    chunk = _pick_chunk(Bt, words, 12 * nz * nz, jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 12 * nz * nz, chunk,
-                     jnp.dtype(dt).itemsize)
-
-    stage = lambda *dims: pl.BlockSpec(
-        (T,) + dims[:-1] + (chunk,),
-        lambda b, t: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_backward_kernel, nu, nx, nc,
-                               export_factors, emit_closed_loop, T)
-    out_shape = (
-        jax.ShapeDtypeStruct((N, nu, nx, Bt), dt),   # K
-        jax.ShapeDtypeStruct((N, nu, Bt), dt),       # d
-    )
-    out_specs = (stage(nu, nx, Bt), stage(nu, Bt))
-    if emit_closed_loop:
-        out_shape = out_shape + (
-            jax.ShapeDtypeStruct((N, nx, nx, Bt), dt),   # M = A + B K
-            jax.ShapeDtypeStruct((N, nx, Bt), dt),       # v = B d + c
-        )
-        out_specs = out_specs + (stage(nx, nx, Bt), stage(nx, Bt))
-    if export_factors:
-        out_shape = out_shape + (
-            jax.ShapeDtypeStruct((N, nx, nx, Bt), dt),   # P_{k+1}
-            jax.ShapeDtypeStruct((N, nu, nu, Bt), dt),   # chol(Huu)
-        )
-        out_specs = out_specs + (stage(nx, nx, Bt), stage(nu, nu, Bt))
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N // T),
-        in_specs=[
-            stage(nx, nx, Bt), stage(nx, nu, Bt), stage(nx, Bt),
-            stage(nz, nz, Bt), stage(nz, Bt),
-            stage(max(nc, 1), nz, Bt), stage(max(nc, 1), Bt),
-            stage(max(nc, 1), Bt),
-            whole(nx, nx, Bt), whole(nx, Bt),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=[
-            pltpu.VMEM((nx, nx, chunk), dt),
-            pltpu.VMEM((nx, chunk), dt),
-        ],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(A, B, c, H, h, D, rho, rg, PN, pN)
-
-
-# ------------------------------------------- cached-factor vector sweep
-
-def _backward_vec_kernel(nu, nx, T, pc_mode,
-                         A_ref, B_ref, c_ref, hf_ref, P_ref, K_ref,
-                         L_ref, pN_ref,
-                         d_ref, v_ref, p_scr):
-    """Vector-only backward sweep on cached factors.
-
-    The reference's ``backward_without_factorization``
-    (lqr_kernel.hpp:149-178, lqr_solver.hpp:65-70): while rho/sigma are
-    unchanged, every matrix quantity of the Riccati recursion — the
-    penalty-folded Hessian, P_{k+1}, chol(Huu), K — is
-    iterate-independent; only the affine terms move.  This kernel redoes
-    exactly that vector work per stage from the factors exported by
-    backward_lanes(export_factors=True):
-
-      Pcp  = P_{k+1} c + p
-      rbar = hf[:nu] + B^T Pcp
-      d    = -(L L^T)^{-1} rbar
-      p    = hf[nu:] + A^T Pcp + K^T rbar      (carry)
-      v    = B d + c
-
-    ~14x fewer FLOPs and ~3x less HBM streaming than the full sweep
-    (the penalty fold, all matrix products, and the Cholesky vanish).
-    ``hf`` is the fully iterate-folded linear cost
-    h - sigma w - D^T (rho g), computed in XLA (it already materializes
-    the rho g product for the full path).
-    """
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        p_scr[:] = pN_ref[:]
-
-    cdt = p_scr.dtype
-    p = p_scr[:]
-    for i in range(T - 1, -1, -1):
-        A = A_ref[i].astype(cdt)
-        Bm = B_ref[i].astype(cdt)
-        c = c_ref[i].astype(cdt)
-        hf = hf_ref[i].astype(cdt)
-        K = K_ref[i]
-        Lt = L_ref[i]
-        L = [[Lt[li, lj] if lj <= li else None for lj in range(nu)]
-             for li in range(nu)]
-
-        Pcp = (P_ref[i] if pc_mode else _mv(P_ref[i], c)) + p
-        rbar = hf[:nu] + _mtv(Bm, Pcp)
-        d = -jnp.stack(
-            _chol_solve_lanes(L, [rbar[ri] for ri in range(nu)]), axis=0
-        )
-        d_ref[i] = d
-        v_ref[i] = _mv(Bm, d) + c
-        p = hf[nu:] + _mtv(A, Pcp) + _mtv(K, rbar)
-    p_scr[:] = p
-
-
-def _backward_vec_kernel_il(nu, nx, T, chunk, pc_mode,
-                            A_ref, B_ref, c_ref, hf_ref, P_ref, K_ref,
-                            L_ref, pN_ref,
-                            d_ref, v_ref, p_scr):
-    """Chunk-interleaved cached vector sweep: grid (N//T, n_chunks)
-    with the lane chunk MINOR, carries in one full-width scratch.
-
-    With the shared-stage pinned streams (A, B, P, K, L indexed by t
-    only) the pipeline emitter skips their re-fetch across the
-    n_chunks minor steps — the matrix streams cross HBM once per
-    TIME step instead of once per batch chunk (measured 1.4x on the
-    shared forward; the same elision applies here).
-
-    ``pc_mode``: P_ref carries the PRE-FOLDED per-scenario Pc =
-    P_{k+1} c_k instead of the (shared) P matrices — P enters the
-    recursion only as P c, both iterate-independent, so folding it
-    once per solve drops the biggest matrix stream and matvec."""
-    t = pl.program_id(0)
-    ch = pl.program_id(1)
-    sl = pl.ds(ch * chunk, chunk)
-
-    @pl.when(t == 0)
-    def _():
-        p_scr[:, sl] = pN_ref[:]
-
-    cdt = p_scr.dtype
-    p = p_scr[:, sl]
-    for i in range(T - 1, -1, -1):
-        A = A_ref[i].astype(cdt)
-        Bm = B_ref[i].astype(cdt)
-        c = c_ref[i].astype(cdt)
-        hf = hf_ref[i].astype(cdt)
-        K = K_ref[i]
-        Lt = L_ref[i]
-        L = [[Lt[li, lj] if lj <= li else None for lj in range(nu)]
-             for li in range(nu)]
-
-        Pcp = (P_ref[i] if pc_mode else _mv(P_ref[i], c)) + p
-        rbar = hf[:nu] + _mtv(Bm, Pcp)
-        d = -jnp.stack(
-            _chol_solve_lanes(L, [rbar[ri] for ri in range(nu)]), axis=0
-        )
-        d_ref[i] = d
-        v_ref[i] = _mv(Bm, d) + c
-        p = hf[nu:] + _mtv(A, Pcp) + _mtv(K, rbar)
-    p_scr[:, sl] = p
-
-
-def _vec_sweep_words(nx, nu, nz):
-    """Per-lane streamed words of the cached vector sweep (shared by
-    backward_vectors_lanes and prepare_shared for chunk agreement)."""
-    return (nx * nx + nx * nu + nx + nz          # A B c hf
-            + nx * nx + nu * nx + nu * nu + nx   # P K L pN
-            + nu + nx)                            # d v
-
-
-def vector_sweep_chunk(Bt, nx, nu, dtype) -> int:
-    """Lane chunk the vector-sweep kernel picks for batch Bt —
-    shared-stage tensors must be replicated to (a multiple of) this
-    width (prepare_shared handles it)."""
-    return _pick_chunk(Bt, _vec_sweep_words(nx, nu, nx + nu),
-                       8 * nx * nx, jnp.dtype(dtype).itemsize)
-
-
-def forward_chunk(Bt, nx, nu, dtype) -> int:
-    """Lane chunk forward_lanes picks for batch Bt (see
-    vector_sweep_chunk; shared (M, K) streams must cover it)."""
-    nz = nx + nu
-    words = 2 * (nx * nx + nx) + nu * nx + nu + nz + nx
-    return _pick_chunk(Bt, words, 4 * nx * nx, jnp.dtype(dtype).itemsize)
-
-
-def _shared_slice(name, x, chunk):
-    """Validate + trim a replicated shared-stage tensor to the kernel's
-    lane chunk.  The pinned-block trick reads lane block 0 for every
-    batch chunk, so the shared array only needs ``chunk`` (replicated)
-    lanes; prepare_shared replicates to the widest consumer, and each
-    kernel slices down to its own width here."""
-    W = x.shape[-1]
-    if W < chunk or W % chunk:
-        raise ValueError(
-            f"shared-stage tensor {name} must have lane width a "
-            f"multiple of the kernel lane chunk ({chunk}); got {W} "
-            f"(replicate via prepare_shared / vector_sweep_chunk / "
-            f"forward_chunk)"
-        )
-    return x[..., :chunk] if W != chunk else x
-
-
-def backward_vectors_lanes(A, B, c, hf, P, K, L, pN, *, interpret=False,
-                           shared=False, interleave=False, Pc=None):
-    """Cached-factor vector sweep; returns (d, v) for forward_lanes.
-
-    A (N,nx,nx,B), B (N,nx,nu,B), c (N,nx,B), hf (N,nz,B) the fully
-    iterate-folded linear cost, (P, K, L) from
-    backward_lanes(export_factors=True), pN (nx,B) the iterate-folded
-    terminal linear cost.  Valid while rho (and the problem matrices)
-    are unchanged since the factors were exported.
-
-    Here the closed-loop v IS worth forming (unlike the headline
-    solve_prepared pairing): M is iterate-independent and cached, so
-    forward_lanes(M, v, ...) streams 156 words/stage vs 204 for the
-    raw (A, B, c) — measured faster (37.7k vs 34.3k cached two-kernel
-    ADMM solves/s).
-
-    ``shared=True`` is the broadcast (shared-stage) problem mode: the
-    matrix streams (A, B, P, K, L) carry ONE lane chunk of replicated
-    data (lane dim == vector_sweep_chunk(B, ...)) instead of B lanes —
-    their lane-block index pins to 0 for every chunk, so HBM holds one
-    copy while the per-instance vectors (c, hf, pN, d, v) run the full
-    batch.  One shared model serving B scenarios never pays B copies of
-    its matrices (the reference holds exactly one shared model per
-    process, lqr_model.hpp:66-89).
-    """
-    N = A.shape[0]
-    nx = A.shape[1]
-    nu = B.shape[2]
-    Bt = c.shape[-1]
-    nz = nx + nu
-    pc_mode = Pc is not None
-    if pc_mode:
-        P = Pc          # per-scenario (N, nx, B) pre-folded P c
-    dt = P.dtype
-
-    words = _vec_sweep_words(nx, nu, nz)
-    if pc_mode:
-        words += nx - nx * nx          # Pc stream in, P stream out
-    chunk = _pick_chunk(Bt, words, 8 * nx * nx, jnp.dtype(dt).itemsize)
-    if shared:
-        A = _shared_slice("A", A, chunk)
-        B = _shared_slice("B", B, chunk)
-        if not pc_mode:
-            P = _shared_slice("P", P, chunk)
-        K = _shared_slice("K", K, chunk)
-        L = _shared_slice("L", L, chunk)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 8 * nx * nx, chunk,
-                     jnp.dtype(dt).itemsize)
-    interleave = interleave and n_chunks > 1
-
-    if interleave:
-        # Chunk-minor grid (time, chunk): index maps take (t, b).  For
-        # pinned (shared) streams the block index is constant along the
-        # minor dimension, so their DMAs are elided across chunks.
-        stage = lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda t, b: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        stage_sh = (lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda t, b: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (0,),
-            memory_space=pltpu.VMEM,
-        )) if shared else stage
-        whole = lambda *dims: pl.BlockSpec(
-            dims[:-1] + (chunk,),
-            lambda t, b: (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        kernel = functools.partial(_backward_vec_kernel_il, nu, nx, T,
-                                   chunk, pc_mode)
-        grid = (N // T, n_chunks)
-        scratch = [pltpu.VMEM((nx, Bt), dt)]
-    else:
-        stage = lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda b, t: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        # Shared matrix streams: same block shape, lane-block pinned to 0.
-        stage_sh = (lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda b, t: (N // T - 1 - t,) + (0,) * (len(dims) - 1) + (0,),
-            memory_space=pltpu.VMEM,
-        )) if shared else stage
-        whole = lambda *dims: pl.BlockSpec(
-            dims[:-1] + (chunk,),
-            lambda b, t: (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        kernel = functools.partial(_backward_vec_kernel, nu, nx, T,
-                                   pc_mode)
-        grid = (n_chunks, N // T)
-        scratch = [pltpu.VMEM((nx, chunk), dt)]
-
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            stage_sh(nx, nx, Bt), stage_sh(nx, nu, Bt), stage(nx, Bt),
-            stage(nz, Bt),
-            stage(nx, Bt) if pc_mode else stage_sh(nx, nx, Bt),
-            stage_sh(nu, nx, Bt),
-            stage_sh(nu, nu, Bt),
-            whole(nx, Bt),
-        ],
-        out_specs=(stage(nu, Bt), stage(nx, Bt)),
-        out_shape=(
-            jax.ShapeDtypeStruct((N, nu, Bt), dt),
-            jax.ShapeDtypeStruct((N, nx, Bt), dt),
-        ),
-        scratch_shapes=scratch,
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(A, B, c, hf, P, K, L, pN)
-
-
-# ------------------------------------------------------------- forward kernel
-
-def _forward_kernel(nu, nx, T,
-                    M_ref, v_ref, K_ref, d_ref, x0_ref,
-                    ws_ref, xN_ref, x_scr):
-    t = pl.program_id(1)
-    n_total = pl.num_programs(1)
-
-    @pl.when(t == 0)
-    def _():
-        x_scr[:] = x0_ref[:]
-
-    x = x_scr[:]
-    for i in range(T):
-        K = K_ref[i]
-        d = d_ref[i]
-        u = _mv(K, x) + d
-        ws_ref[i] = jnp.concatenate([u, x], axis=0)
-        x = _mv(M_ref[i], x) + v_ref[i]
-    x_scr[:] = x
-
-    @pl.when(t == n_total - 1)
-    def _():
-        xN_ref[:] = x
-
-
-def _forward_kernel_il(nu, nx, T, chunk,
-                       M_ref, v_ref, K_ref, d_ref, x0_ref,
-                       ws_ref, xN_ref, x_scr):
-    """Chunk-interleaved rollout: grid (N//T, n_chunks) with the lane
-    chunk as the MINOR dimension, so consecutive grid steps advance
-    DIFFERENT chunks' x-carries — the sequential dependency between a
-    chunk's stages is n_chunks grid steps apart, letting the VPU
-    pipeline one chunk's stage while another's carry is still in
-    flight (the carry-chain latency diagnosed in
-    docs/KERNEL_DESIGN.md).  Carries live in one full-width scratch,
-    sliced per chunk."""
-    t = pl.program_id(0)
-    c = pl.program_id(1)
-    nt = pl.num_programs(0)
-    sl = pl.ds(c * chunk, chunk)
-
-    @pl.when(t == 0)
-    def _():
-        x_scr[:, sl] = x0_ref[:]
-
-    x = x_scr[:, sl]
-    for i in range(T):
-        K = K_ref[i]
-        d = d_ref[i]
-        u = _mv(K, x) + d
-        ws_ref[i] = jnp.concatenate([u, x], axis=0)
-        x = _mv(M_ref[i], x) + v_ref[i]
-    x_scr[:, sl] = x
-
-    @pl.when(t == nt - 1)
-    def _():
-        xN_ref[:] = x
-
-
-def forward_lanes(M, v, K, d, x0, *, interpret=False, shared=False,
-                  interleave=False):
-    """Closed-loop rollout; returns (ws (N, nz, B), xN (nx, B)).
-
-    ``shared=True`` is the broadcast (shared-stage) mode: the matrix
-    streams (M, K) carry ONE replicated lane chunk (lane width a
-    multiple of forward_chunk(B, ...)) pinned to lane block 0, while
-    the per-instance vectors (v, d, x0, ws) run the full batch — one
-    shared model serving B scenarios streams its closed-loop maps from
-    HBM once per chunk instead of B times.
-
-    ``interleave=True`` makes the lane chunk the MINOR grid dimension
-    (see _forward_kernel_il): multi-chunk batches hide the x-carry
-    dependency by rotating through independent chunks."""
-    N, nx = M.shape[0], M.shape[1]
-    nu = K.shape[1]
-    Bt = v.shape[-1]
-    nz = nx + nu
-    dt = M.dtype
-
-    words = 2 * (nx * nx + nx) + nu * nx + nu + nz + nx
-    chunk = _pick_chunk(Bt, words, 4 * nx * nx, jnp.dtype(dt).itemsize)
-    if shared:
-        M = _shared_slice("M", M, chunk)
-        K = _shared_slice("K", K, chunk)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 4 * nx * nx, chunk,
-                     jnp.dtype(dt).itemsize)
-    interleave = interleave and n_chunks > 1
-
-    if interleave:
-        # Grid (time, chunk): chunk minor.  Index maps take (t, c).
-        stage = lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda t, c: (t,) + (0,) * (len(dims) - 1) + (c,),
-            memory_space=pltpu.VMEM,
-        )
-        stage_sh_ = lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda t, c: (t,) + (0,) * (len(dims) - 1) + (0,),
-            memory_space=pltpu.VMEM,
-        )
-        whole = lambda *dims: pl.BlockSpec(
-            dims[:-1] + (chunk,),
-            lambda t, c: (0,) * (len(dims) - 1) + (c,),
-            memory_space=pltpu.VMEM,
-        )
-        stage_sh = stage_sh_ if shared else stage
-        kernel = functools.partial(_forward_kernel_il, nu, nx, T, chunk)
-        grid = (N // T, n_chunks)
-        scratch = [pltpu.VMEM((nx, Bt), dt)]
-    else:
-        stage = lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda b, t: (t,) + (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        stage_sh = (lambda *dims: pl.BlockSpec(
-            (T,) + dims[:-1] + (chunk,),
-            lambda b, t: (t,) + (0,) * (len(dims) - 1) + (0,),
-            memory_space=pltpu.VMEM,
-        )) if shared else stage
-        whole = lambda *dims: pl.BlockSpec(
-            dims[:-1] + (chunk,),
-            lambda b, t: (0,) * (len(dims) - 1) + (b,),
-            memory_space=pltpu.VMEM,
-        )
-        kernel = functools.partial(_forward_kernel, nu, nx, T)
-        grid = (n_chunks, N // T)
-        scratch = [pltpu.VMEM((nx, chunk), dt)]
-
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            stage_sh(nx, nx, Bt), stage(nx, Bt),
-            stage_sh(nu, nx, Bt), stage(nu, Bt),
-            whole(nx, Bt),
-        ],
-        out_specs=(stage(nz, Bt), whole(nx, Bt)),
-        out_shape=(
-            jax.ShapeDtypeStruct((N, nz, Bt), dt),
-            jax.ShapeDtypeStruct((nx, Bt), dt),
-        ),
-        scratch_shapes=scratch,
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(M, v, K, d, x0)
-
-
-def _forward_abc_kernel(nu, nx, T,
-                        A_ref, B_ref, c_ref, K_ref, d_ref, x0_ref,
-                        ws_ref, xN_ref, x_scr):
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        x_scr[:] = x0_ref[:]
-
-    cdt = x_scr.dtype
-    x = x_scr[:]
-    for i in range(T):
-        u = _mv(K_ref[i], x) + d_ref[i]
-        ws_ref[i] = jnp.concatenate([u, x], axis=0)
-        x = (
-            _mv(A_ref[i].astype(cdt), x)
-            + _mv(B_ref[i].astype(cdt), u)
-            + c_ref[i].astype(cdt)
-        )
-    x_scr[:] = x
-
-    n_total = pl.num_programs(1)
-
-    @pl.when(t == n_total - 1)
-    def _():
-        xN_ref[:] = x
-
-
-def forward_rollout_lanes(A, B, c, K, d, x0, *, interpret=False):
-    """Closed-loop rollout from the RAW dynamics stream.
-
-    Same result as forward_lanes, but x+ = A x + B u + c with u = K x
-    + d — no (M, v) inputs, so the backward sweep can skip computing
-    and writing them (backward_lanes(emit_closed_loop=False)), and in
-    bf16 storage mode the dominant (A, B) stream rides at half width
-    (M, v are always computed f32).  Returns (ws (N, nz, B), xN).
-    """
-    N, nx, _, Bt = A.shape
-    nu = K.shape[1]
-    nz = nx + nu
-    dt = K.dtype
-    sitem = jnp.dtype(A.dtype).itemsize / jnp.dtype(dt).itemsize
-
-    words = (sitem * (nx * nx + nx * nu + nx)
-             + nu * nx + nu + nz + nx)
-    chunk = _pick_chunk(Bt, int(words) + 1, 4 * nx * nx,
-                        jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, int(words) + 1, 4 * nx * nx, chunk,
-                     jnp.dtype(dt).itemsize)
-
-    stage = lambda *dims: pl.BlockSpec(
-        (T,) + dims[:-1] + (chunk,),
-        lambda b, t: (t,) + (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_forward_abc_kernel, nu, nx, T)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N // T),
-        in_specs=[
-            stage(nx, nx, Bt), stage(nx, nu, Bt), stage(nx, Bt),
-            stage(nu, nx, Bt), stage(nu, Bt),
-            whole(nx, Bt),
-        ],
-        out_specs=(stage(nz, Bt), whole(nx, Bt)),
-        out_shape=(
-            jax.ShapeDtypeStruct((N, nz, Bt), dt),
-            jax.ShapeDtypeStruct((nx, Bt), dt),
-        ),
-        scratch_shapes=[pltpu.VMEM((nx, chunk), dt)],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(A, B, c, K, d, x0)
-
-
-# ------------------------------------------------------- packed-stream kernels
-#
-# Measured (one v5e, ABA-stable): the sweep kernels' per-grid-step cost
-# is dominated by PER-WINDOW DMA issue overhead, not bandwidth, stride,
-# carry latency, or compute — a stripped no-math forward with the same
-# 5 input windows ran at the full kernel's speed (6.1 vs 6.0 ms at
-# B=2048 N=512), while the same bytes through ONE packed window ran in
-# 2.3 ms (414 GB/s — the machine's achieved stream rate; XLA moves the
-# same data at 382 GB/s).  These variants therefore pack the per-stage
-# streams into single row-concatenated arrays: the backward kernel
-# reads (dyn | cost) and writes one (K|d) gain block; the rollout
-# reads (dyn, gains).  Math is identical to _backward_kernel /
-# _forward_abc_kernel (slices + in-kernel reshape are free).
-
-def _backward_packed_kernel(nu, nx, nc, T,
-                            Sd_ref, Sc_ref, PN_ref, pN_ref,
-                            G_ref, P_scr, p_scr):
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        P_scr[:] = PN_ref[:]
-        p_scr[:] = pN_ref[:]
-
-    cdt = P_scr.dtype
-    nz = nx + nu
-    P = P_scr[:]
-    p = p_scr[:]
-    for i in range(T - 1, -1, -1):
-        Sd = Sd_ref[i].astype(cdt)
-        A = Sd[:nx * nx].reshape(nx, nx, Sd.shape[-1])
-        Bm = Sd[nx * nx:nx * nx + nx * nu].reshape(nx, nu, Sd.shape[-1])
-        c = Sd[nx * nx + nx * nu:]
-        Sc = Sc_ref[i].astype(cdt)
-        H = Sc[:nz * nz].reshape(nz, nz, Sc.shape[-1])
-        h = Sc[nz * nz:nz * nz + nz]
-        if nc > 0:
-            off = nz * nz + nz
-            D = Sc[off:off + nc * nz].reshape(nc, nz, Sc.shape[-1])
-            rho = Sc[off + nc * nz:off + nc * nz + nc]
-            rg = Sc[off + nc * nz + nc:]
-            for ci in range(nc):
-                w = rho[ci] * D[ci]
-                rows = []
-                for r_i in range(H.shape[0]):
-                    rows.append(H[r_i] + D[ci, r_i][None, :] * w)
-                H = jnp.stack(rows, axis=0)
-                h = h - rg[ci][None, :] * D[ci]
-
-        R = H[:nu, :nu]
-        S = H[:nu, nu:]
-        Q = H[nu:, nu:]
-        r = h[:nu]
-        q = h[nu:]
-
+        A_r, B_r, c_r, H_r, h_r, PN_r, pN_r = ins
+    K_o, d_o = outs[:2]
+    xs, us, cs = (0, nx, X), (0, nu, U), (0, nc, C)
+    xo = (nu, nx, X)                  # x block of an nz-long axis
+    dt = K_o.dtype
+    pad_u = jnp.where((_iota((U, U), 0) == _iota((U, U), 1))
+                      & (_iota((U, U), 0) >= nu), 1.0, 0.0).astype(dt)
+
+    def body(t, carry):
+        P, p = carry
+        k = N - 1 - t
+        A = _ld(A_r, (0, k), (xs, xs))
+        Bm = _ld(B_r, (0, k), (xs, us))
+        c = _ld(c_r, (0, k), (xs,))
+        R = _ld(H_r, (0, k), (us, us))
+        S = _ld(H_r, (0, k), (us, xo))
+        Q = _ld(H_r, (0, k), (xo, xo))
+        r = _ld(h_r, (0, k), (us,))
+        q = _ld(h_r, (0, k), (xo,))
+        if nc:
+            # Penalty fold (lqr_kernel.hpp:106-112): H += D^T diag(rho) D,
+            # h -= D^T (rho g).
+            Du = _ld(D_r, (0, k), (cs, us))
+            Dx = _ld(D_r, (0, k), (cs, xo))
+            rho = _ld(rho_r, (0, k), (cs,))
+            rg = _ld(rg_r, (0, k), (cs,))
+            R = R + _mtm(Du, rho[:, None] * Du)
+            S = S + _mtm(Du, rho[:, None] * Dx)
+            Q = Q + _mtm(Dx, rho[:, None] * Dx)
+            r = r - _mtv(Du, rg)
+            q = q - _mtv(Dx, rg)
         PA = _mm(P, A)
-        PB = _mm(P, Bm)
         Pcp = _mv(P, c) + p
         G = S + _mtm(Bm, PA)
         rbar = r + _mtv(Bm, Pcp)
-
-        L = _chol_lanes(_low_rows(R, Bm, PB))
-        sol = _chol_solve_rows(
-            L,
-            [jnp.concatenate([G[gi], rbar[gi][None, :]], axis=0)
-             for gi in range(nu)],
-        )
-        K = -jnp.stack([sol[gi][:nx] for gi in range(nu)], axis=0)
-        d = -jnp.stack([sol[gi][nx] for gi in range(nu)], axis=0)
-
-        Pn = _mtm_sym([(A, PA), (G, K)], Q)
+        Hinv = _inverse(R + _mtm(Bm, _mm(P, Bm)) + pad_u, nu)
+        K = -_mm(Hinv, G)
+        d = -_mv(Hinv, rbar)
+        Pn = Q + _mtm(A, PA) + _mtm(G, K)
+        Pn = 0.5 * (Pn + Pn.T)
         pn = q + _mtv(A, Pcp) + _mtv(K, rbar)
+        _st(K_o, (0, k), (us, xs), K)
+        _st(d_o, (0, k), (us,), d)
+        if export:
+            _st(outs[2], (0, k), (xs, xs), P)
+            _st(outs[3], (0, k), (us, us), Hinv)
+        return Pn, pn
 
-        G_ref[i] = jnp.concatenate(
-            [K.reshape(nu * nx, K.shape[-1]), d], axis=0)
-        P = Pn
-        p = pn
-
-    P_scr[:] = P
-    p_scr[:] = p
-
-
-def _forward_packed_kernel(nu, nx, T,
-                           Sd_ref, G_ref, x0_ref,
-                           ws_ref, xN_ref, x_scr):
-    t = pl.program_id(1)
-
-    @pl.when(t == 0)
-    def _():
-        x_scr[:] = x0_ref[:]
-
-    cdt = x_scr.dtype
-    x = x_scr[:]
-    for i in range(T):
-        Sd = Sd_ref[i].astype(cdt)
-        ch = Sd.shape[-1]
-        A = Sd[:nx * nx].reshape(nx, nx, ch)
-        Bm = Sd[nx * nx:nx * nx + nx * nu].reshape(nx, nu, ch)
-        c = Sd[nx * nx + nx * nu:]
-        G = G_ref[i]
-        K = G[:nu * nx].reshape(nu, nx, ch)
-        d = G[nu * nx:]
-        u = _mv(K, x) + d
-        ws_ref[i] = jnp.concatenate([u, x], axis=0)
-        x = _mv(A, x) + _mv(Bm, u) + c
-    x_scr[:] = x
-
-    @pl.when(t == pl.num_programs(1) - 1)
-    def _():
-        xN_ref[:] = x
+    P0 = _ld(PN_r, (0,), (xs, xs))
+    p0 = _ld(pN_r, (0,), (xs,))
+    jax.lax.fori_loop(0, N, body, (P0.astype(dt), p0.astype(dt)))
 
 
-def backward_packed(Sd, Sc, PN, pN, nu, nc, *, interpret=False):
-    """Packed-stream (K, d)-only backward sweep.
+def _vectors_kernel(N, nx, nu, *refs):
+    A_r, B_r, c_r, hf_r, P_r, K_r, Hi_r, pN_r, d_o = refs
+    _ld, _st = _tiles(_zero())
+    X, U = _tile(nx), _tile(nu)
+    xs, us, xo = (0, nx, X), (0, nu, U), (nu, nx, X)
 
-    ``Sd`` (N, nx*nx + nx*nu + nx, B) the row-packed (A | B | c)
-    dynamics stream; ``Sc`` (N, nz*nz + nz + nc*nz + 2nc, B) the
-    row-packed (H~ | h~ | D | rho | rho*g) cost stream; PN/pN the
-    folded terminal cost-to-go.  Returns the packed gain stream
-    G (N, nu*nx + nu, B).  Same math as backward_lanes
-    (emit_closed_loop=False) through ONE input window per stream —
-    the measured per-window DMA overhead fix (see section comment).
+    def body(t, p):
+        k = N - 1 - t
+        A = _ld(A_r, (0, k), (xs, xs))
+        Bm = _ld(B_r, (0, k), (xs, us))
+        c = _ld(c_r, (0, k), (xs,))
+        P = _ld(P_r, (0, k), (xs, xs))
+        K = _ld(K_r, (0, k), (us, xs))
+        Hinv = _ld(Hi_r, (0, k), (us, us))
+        Pcp = _mv(P, c) + p
+        rbar = _ld(hf_r, (0, k), (us,)) + _mtv(Bm, Pcp)
+        _st(d_o, (0, k), (us,), -_mv(Hinv, rbar))
+        return _ld(hf_r, (0, k), (xo,)) + _mtv(A, Pcp) + _mtv(K, rbar)
+
+    p0 = _ld(pN_r, (0,), (xs,))
+    jax.lax.fori_loop(0, N, body, p0.astype(d_o.dtype))
+
+
+def _forward_kernel(N, nx, nu, *refs):
+    A_r, B_r, c_r, K_r, d_r, x0_r, ws_o, xN_o = refs
+    _ld, _st = _tiles(_zero())
+    X, U = _tile(nx), _tile(nu)
+    xs, us = (0, nx, X), (0, nu, U)
+
+    def body(k, x):
+        K = _ld(K_r, (0, k), (us, xs))
+        u = _mv(K, x) + _ld(d_r, (0, k), (us,))
+        _st(ws_o, (0, k), (us,), u)
+        _st(ws_o, (0, k), ((nu, nx, X),), x)
+        A = _ld(A_r, (0, k), (xs, xs))
+        Bm = _ld(B_r, (0, k), (xs, us))
+        return _mv(A, x) + _mv(Bm, u) + _ld(c_r, (0, k), (xs,))
+
+    x0 = _ld(x0_r, (0,), (xs,)).astype(ws_o.dtype)
+    _st(xN_o, (0,), (xs,), jax.lax.fori_loop(0, N, body, x0))
+
+
+def _pallas(kernel, ins, out_shapes, width, dtype, nx, interpret, name):
+    """One program per instance; a shared input (leading dim 1 while
+    the batch is wider) is read by every program."""
+    specs = []
+    for x in ins:
+        nd = x.ndim
+        if x.shape[0] == width:
+            imap = lambda b, nd=nd: (b,) + (0,) * (nd - 1)
+        else:
+            imap = lambda b, nd=nd: (0,) * nd
+        specs.append(pl.BlockSpec((1,) + x.shape[1:], imap))
+    X = _tile(nx)
+    return pl.pallas_call(
+        kernel,
+        out_shape=tuple(jax.ShapeDtypeStruct((width,) + s, dtype)
+                        for s in out_shapes),
+        grid=(width,),
+        in_specs=specs,
+        out_specs=tuple(
+            pl.BlockSpec((1,) + s, lambda b, n=len(s): (b,) + (0,) * n)
+            for s in out_shapes),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=1 if X <= 16 else (4 if X <= 32 else 8)),
+        interpret=interpret,
+        name=name,
+    )(*[x.astype(dtype) for x in ins])
+
+
+# ---------------------------------------------------- XLA reference sweeps
+# The whole batch per stage by batched matmuls inside a lax.scan; shared
+# (W=1) inputs broadcast in the products.
+
+def _xmm(a, b):
+    return jnp.matmul(a, b, precision=HIGHEST)
+
+
+def _xmv(a, v):
+    return jnp.einsum("...ij,...j->...i", a, v, precision=HIGHEST)
+
+
+def _T(x):
+    return jnp.swapaxes(x, -1, -2)
+
+
+def _stages(*xs):
+    """(W, N, ...) -> (N, W, ...) scan inputs."""
+    return tuple(jnp.moveaxis(x, 1, 0) for x in xs)
+
+
+def _carry(x, width):
+    return jnp.broadcast_to(x, (width,) + x.shape[1:])
+
+
+def _backward_xla(A, Bm, c, H, h, D, rho, rg, PN, pN, export):
+    width = _width(A, Bm, c, H, h, D, rho, rg, PN, pN)
+    nu = Bm.shape[-1]
+    xs = (A, Bm, c, H, h) + ((D, rho, rg) if D is not None else ())
+
+    def step(carry, xs_k):
+        P, p = carry
+        Ak, Bk, ck, Hk, hk = xs_k[:5]
+        if D is not None:
+            Dk, rk, rgk = xs_k[5:]
+            Hk = Hk + _xmm(_T(Dk) * rk[..., None, :], Dk)
+            hk = hk - _xmv(_T(Dk), rgk)
+        PA = _xmm(P, Ak)
+        Pcp = _xmv(P, ck) + p
+        G = Hk[..., :nu, nu:] + _xmm(_T(Bk), PA)
+        rbar = hk[..., :nu] + _xmv(_T(Bk), Pcp)
+        Huu = Hk[..., :nu, :nu] + _xmm(_T(Bk), _xmm(P, Bk))
+        L = jnp.linalg.cholesky(Huu)
+        eye = jnp.broadcast_to(jnp.eye(nu, dtype=Huu.dtype), Huu.shape)
+        Hinv = jax.scipy.linalg.cho_solve((L, True), eye)
+        K = -_xmm(Hinv, G)
+        d = -_xmv(Hinv, rbar)
+        Pn = Hk[..., nu:, nu:] + _xmm(_T(Ak), PA) + _xmm(_T(G), K)
+        Pn = 0.5 * (Pn + _T(Pn))
+        pn = hk[..., nu:] + _xmv(_T(Ak), Pcp) + _xmv(_T(K), rbar)
+        return (Pn, pn), (K, d) + ((P, Hinv) if export else ())
+
+    carry0 = (_carry(PN, width), _carry(pN, width))
+    _, outs = jax.lax.scan(step, carry0, _stages(*xs), reverse=True)
+    return tuple(jnp.moveaxis(o, 0, 1) for o in outs)
+
+
+def _vectors_xla(A, Bm, c, hf, P, K, Hinv, pN):
+    width = _width(A, Bm, c, hf, P, K, Hinv, pN)
+    nu = Bm.shape[-1]
+
+    def step(p, xs_k):
+        Ak, Bk, ck, hk, Pk, Kk, Hk = xs_k
+        Pcp = _xmv(Pk, ck) + p
+        rbar = hk[..., :nu] + _xmv(_T(Bk), Pcp)
+        d = -_xmv(Hk, rbar)
+        return hk[..., nu:] + _xmv(_T(Ak), Pcp) + _xmv(_T(Kk), rbar), d
+
+    _, d = jax.lax.scan(step, _carry(pN, width),
+                        _stages(A, Bm, c, hf, P, K, Hinv), reverse=True)
+    return jnp.moveaxis(d, 0, 1)
+
+
+def _forward_xla(A, Bm, c, K, d, x0):
+    width = _width(A, Bm, c, K, d, x0)
+
+    def step(x, xs_k):
+        Ak, Bk, ck, Kk, dk = xs_k
+        u = _xmv(Kk, x) + dk
+        x_next = _xmv(Ak, x) + _xmv(Bk, u) + ck
+        return x_next, jnp.concatenate(
+            [u, jnp.broadcast_to(x, u.shape[:-1] + x.shape[-1:])], -1)
+
+    xN, ws = jax.lax.scan(step, _carry(x0, width),
+                          _stages(A, Bm, c, K, d))
+    return jnp.moveaxis(ws, 0, 1), xN
+
+
+# ------------------------------------------------------------ public sweeps
+
+def backward(A, B, c, H, h, D, rho, rg, PN, pN, *, export_factors=False,
+             impl=None):
+    """Factorizing backward sweep; all arrays batch-leading.
+
+    A (W,N,nx,nx), B (W,N,nx,nu), c (W,N,nx), H (W,N,nz,nz) symmetric,
+    h (W,N,nz), D (W,N,nc,nz), rho/rg (W,N,nc) the per-row penalty and
+    rho*g, PN (W,nx,nx) / pN (W,nx) the folded terminal cost-to-go.
+    W is the batch, or 1 for a shared tensor.  D/rho/rg may be None (no
+    constraint rows).
+
+    Returns (K (B,N,nu,nx), d (B,N,nu)), plus the factors
+    (P_{k+1} (B,N,nx,nx), Huu^{-1} (B,N,nu,nu)) with ``export_factors``.
     """
-    N = Sd.shape[0]
-    Bt = Sd.shape[-1]
-    # Sd rows = nx^2 + nx*nu + nx = nx*(nx + nu + 1): recover nx.
-    import math
-
-    nx = int((-(nu + 1) + math.isqrt((nu + 1) ** 2 + 4 * Sd.shape[1]))
-             // 2)
-    nz = nx + nu
-    dt = PN.dtype
-
-    words = Sd.shape[1] + Sc.shape[1] + (nu * nx + nu) \
-        + 2 * (nx * nx + nx)
-    chunk = _pick_chunk(Bt, words, 12 * nz * nz, jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 12 * nz * nz, chunk,
-                     jnp.dtype(dt).itemsize)
-
-    stage = lambda rows: pl.BlockSpec(
-        (T, rows, chunk),
-        lambda b, t: (N // T - 1 - t, 0, b),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_backward_packed_kernel, nu, nx, nc, T)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N // T),
-        in_specs=[
-            stage(Sd.shape[1]), stage(Sc.shape[1]),
-            whole(nx, nx, Bt), whole(nx, Bt),
-        ],
-        out_specs=stage(nu * nx + nu),
-        out_shape=jax.ShapeDtypeStruct((N, nu * nx + nu, Bt), dt),
-        scratch_shapes=[
-            pltpu.VMEM((nx, nx, chunk), dt),
-            pltpu.VMEM((nx, chunk), dt),
-        ],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(Sd, Sc, PN, pN)
+    if D is not None and D.shape[-2] == 0:
+        D = rho = rg = None
+    N, nx, nu = A.shape[1], A.shape[-1], B.shape[-1]
+    nc = 0 if D is None else D.shape[-2]
+    impl = choose_impl(nx, impl)
+    if impl == "xla":
+        return _backward_xla(A, B, c, H, h, D, rho, rg, PN, pN,
+                             export_factors)
+    ins = (A, B, c, H, h) + ((D, rho, rg) if nc else ()) + (PN, pN)
+    outs = [(N, nu, nx), (N, nu)]
+    if export_factors:
+        outs += [(N, nx, nx), (N, nu, nu)]
+    return _pallas(
+        functools.partial(_backward_kernel, N, nx, nu, nc, export_factors),
+        ins, outs, _width(*ins), PN.dtype, nx, impl == "interpret",
+        "riccati_backward")
 
 
-def forward_packed(Sd, G, x0, nu, *, interpret=False):
-    """Packed-stream rollout from the raw dynamics: ``Sd`` as in
-    backward_packed, ``G`` its packed gain output, x0 (nx, B).
-    Returns (ws (N, nz, B), xN (nx, B))."""
-    import math
+def backward_vectors(A, B, c, hf, P, K, Hinv, pN, *, impl=None):
+    """Cached-factor vector sweep -> d (B, N, nu).
 
-    N = Sd.shape[0]
-    Bt = Sd.shape[-1]
-    nx = int((-(nu + 1) + math.isqrt((nu + 1) ** 2 + 4 * Sd.shape[1]))
-             // 2)
-    nz = nx + nu
-    dt = G.dtype
-    sitem = jnp.dtype(Sd.dtype).itemsize / jnp.dtype(dt).itemsize
+    ``hf`` (W, N, nz) is the fully iterate-folded linear cost
+    h - sigma w - D^T (rho g); (P, K, Hinv) come from
+    ``backward(export_factors=True)`` at the same rho; pN (W, nx) is
+    the folded terminal linear cost.  Per stage:
 
-    words = int(sitem * Sd.shape[1]) + G.shape[1] + nz + nx
-    chunk = _pick_chunk(Bt, words, 4 * nx * nx, jnp.dtype(dt).itemsize)
-    n_chunks = Bt // chunk
-    T = _pick_stages(N, words, 4 * nx * nx, chunk,
-                     jnp.dtype(dt).itemsize)
-
-    stage = lambda rows: pl.BlockSpec(
-        (T, rows, chunk),
-        lambda b, t: (t, 0, b),
-        memory_space=pltpu.VMEM,
-    )
-    whole = lambda *dims: pl.BlockSpec(
-        dims[:-1] + (chunk,),
-        lambda b, t: (0,) * (len(dims) - 1) + (b,),
-        memory_space=pltpu.VMEM,
-    )
-
-    kernel = functools.partial(_forward_packed_kernel, nu, nx, T)
-    return pl.pallas_call(
-        kernel,
-        grid=(n_chunks, N // T),
-        in_specs=[stage(Sd.shape[1]), stage(G.shape[1]),
-                  whole(nx, Bt)],
-        out_specs=(stage(nz), whole(nx, Bt)),
-        out_shape=(
-            jax.ShapeDtypeStruct((N, nz, Bt), dt),
-            jax.ShapeDtypeStruct((nx, Bt), dt),
-        ),
-        scratch_shapes=[pltpu.VMEM((nx, chunk), dt)],
-        compiler_params=_compiler_params(interpret),
-        interpret=interpret,
-    )(Sd, G, x0)
+      Pcp = P_{k+1} c + p ;  rbar = hf_u + B^T Pcp ;
+      d = -Huu^{-1} rbar ;  p = hf_x + A^T Pcp + K^T rbar.
+    """
+    N, nx, nu = A.shape[1], A.shape[-1], B.shape[-1]
+    impl = choose_impl(nx, impl)
+    if impl == "xla":
+        return _vectors_xla(A, B, c, hf, P, K, Hinv, pN)
+    ins = (A, B, c, hf, P, K, Hinv, pN)
+    (d,) = _pallas(functools.partial(_vectors_kernel, N, nx, nu), ins,
+                   [(N, nu)], _width(*ins), pN.dtype, nx,
+                   impl == "interpret", "riccati_vectors")
+    return d
 
 
-# -------------------------------------------------------------- high-level API
+def forward(A, B, c, K, d, x0, *, impl=None):
+    """Closed-loop rollout u = K x + d, x+ = A x + B u + c.
 
-def to_lanes(x):
-    """(B, N, ...) -> (N, ..., B): stage-major, batch-in-lanes."""
-    return jnp.moveaxis(x, 0, -1)
+    Returns (ws (B, N, nz) with rows [u; x], xN (B, nx))."""
+    N, nx, nu = A.shape[1], A.shape[-1], B.shape[-1]
+    impl = choose_impl(nx, impl)
+    if impl == "xla":
+        return _forward_xla(A, B, c, K, d, x0)
+    ins = (A, B, c, K, d, x0)
+    return _pallas(functools.partial(_forward_kernel, N, nx, nu), ins,
+                   [(N, nx + nu), (nx,)], _width(*ins), x0.dtype, nx,
+                   impl == "interpret", "riccati_forward")
 
 
-def from_lanes(x):
-    """(N, ..., B) -> (B, N, ...)."""
-    return jnp.moveaxis(x, -1, 0)
+# ------------------------------------------------------- whole inner solves
+
+def stack_terminal(ws, xN, nu):
+    """ws (B, N, nz), xN (B, nx) -> (B, N+1, nz) with u_N = 0."""
+    wN = jnp.concatenate([jnp.zeros(xN.shape[:-1] + (nu,), xN.dtype), xN],
+                         axis=-1)
+    return jnp.concatenate([ws, wN[:, None]], axis=1)
 
 
-def prepare_lanes(problem, it, x0, sigma: float, storage_dtype=None):
-    """Transpose a standard batched problem into the lanes layout.
+def solve_batched(problem, it, x0, sigma: float, *, impl=None):
+    """Batched inner solve of a batched problem (leading batch axis B).
 
-    Returns the argument tuple for ``solve_prepared``.  In iterative
-    callers (ADMM, MPC replans, benchmarks) the stage matrices are
-    prepared once and only the small vector pieces change per solve.
-
-    ``storage_dtype`` (e.g. jnp.bfloat16) stores the streamed stage
-    tensors narrower than the compute dtype: the kernels upcast at
-    load, halving HBM footprint AND bandwidth for memory-bound shapes
-    (the N=1024 centroidal config OOMs in f32 at B=4096 without it).
-    This quantizes the problem DATA (~3 decimal digits); the recursion
-    itself still runs in the carry precision.
+    problem/it: standard batched pytrees; x0 (B, nx).  Returns
+    ws (B, N+1, nz) like every other backend.
     """
     from pdp_lqr_tpu.problem import make_stage_params
 
     nu = problem.nu
-    params = jax.vmap(lambda p, i: make_stage_params(p, i, sigma))(problem, it)
-
-    st = (lambda x: x.astype(storage_dtype)) if storage_dtype else (lambda x: x)
-    A = st(to_lanes(problem.A))
-    B = st(to_lanes(problem.B))
-    c = st(to_lanes(problem.c))
-    H = st(to_lanes(params.H[:, :-1]))
-    h = st(to_lanes(params.h[:, :-1]))
-    D = st(to_lanes(problem.D[:, :-1]))
-    rho = st(to_lanes(it.rho[:, :-1]))
-    rg = st(to_lanes(it.rho[:, :-1] * params.g[:, :-1]))
-
-    # Terminal fold (tiny, stays in jnp): P_N = Hxx~ + Dx^T rho Dx.
+    params = jax.vmap(lambda p, i: make_stage_params(p, i, sigma))(
+        problem, it)
     HN = params.H[:, -1, nu:, nu:]
     hN = params.h[:, -1, nu:]
-    DN = problem.D[:, -1, :, nu:]
-    rhoN = it.rho[:, -1]
-    gN = params.g[:, -1]
     if problem.nc > 0:
-        HN = HN + jnp.einsum("bci,bc,bcj->bij", DN, rhoN, DN)
-        hN = hN - jnp.einsum("bci,bc->bi", DN, rhoN * gN)
-    PN = jnp.moveaxis(HN, 0, -1)
-    pN = jnp.moveaxis(hN, 0, -1)
-    return (A, B, c, H, h, D, rho, rg, PN, pN, jnp.moveaxis(x0, 0, -1), nu)
-
-
-def solve_prepared(prep, *, interpret=False):
-    """Run the fused kernels on prepared lanes data -> ws (B, N+1, nz)."""
-    A, B, c, H, h, D, rho, rg, PN, pN, x0_l, nu = prep
-    # (K, d)-only sweep + raw-(A, B, c) rollout: the closed-loop maps
-    # (M, v) are never formed — measured faster than the M/v pairing
-    # on the bottleneck backward kernel (fewer FLOPs, 1/4 the writes).
-    K, d = backward_lanes(
-        A, B, c, H, h, D, rho, rg, PN, pN, interpret=interpret,
-        emit_closed_loop=False,
-    )
-    ws, xN = forward_rollout_lanes(A, B, c, K, d, x0_l,
-                                   interpret=interpret)
-
-    ws = from_lanes(ws)                          # (B, N, nz)
-    xN = jnp.moveaxis(xN, -1, 0)                 # (B, nx)
-    wN = jnp.concatenate(
-        [jnp.zeros(xN.shape[:-1] + (nu,), ws.dtype), xN], axis=-1
-    )
-    return jnp.concatenate([ws, wN[:, None, :]], axis=1)
-
-
-def prepare_packed(problem, it, x0, sigma: float, storage_dtype=None):
-    """Packed-stream preparation: the prepare_lanes layout with the
-    per-stage streams row-concatenated into two arrays —
-    Sd = (A | B | c) and Sc = (H~ | h~ | D | rho | rho*g) — so each
-    sweep kernel reads ONE window per stream (the measured per-window
-    DMA overhead fix; see the packed-stream section comment).
-    Returns the argument tuple for solve_packed_prepared."""
-    prep = prepare_lanes(problem, it, x0, sigma, storage_dtype)
-    A, B, c, H, h, D, rho, rg, PN, pN, x0_l, nu = prep
-    N = A.shape[0]
-    Bt = A.shape[-1]
-    nc = D.shape[1]
-    flat = lambda x: x.reshape(N, -1, Bt)
-    Sd = jnp.concatenate([flat(A), flat(B), c], axis=1)
-    parts = [flat(H), h]
-    if nc:
-        parts += [flat(D), rho, rg]
-    Sc = jnp.concatenate(parts, axis=1)
-    return (Sd, Sc, PN, pN, x0_l, nu, nc)
-
-
-def solve_packed_prepared(prep, *, interpret=False):
-    """Run the packed-stream kernel pair -> ws (B, N+1, nz)."""
-    Sd, Sc, PN, pN, x0_l, nu, nc = prep
-    G = backward_packed(Sd, Sc, PN, pN, nu, nc, interpret=interpret)
-    ws, xN = forward_packed(Sd, G, x0_l, nu, interpret=interpret)
-    ws = from_lanes(ws)
-    xN = jnp.moveaxis(xN, -1, 0)
-    wN = jnp.concatenate(
-        [jnp.zeros(xN.shape[:-1] + (nu,), ws.dtype), xN], axis=-1
-    )
-    return jnp.concatenate([ws, wN[:, None, :]], axis=1)
-
-
-def solve_packed(problem, it, x0, sigma: float, *, storage_dtype=None,
-                 interpret=False):
-    """Full batched solve through the packed-stream kernels (same
-    contract as solve_lanes; measured ~1.7-2.5x on the v5e from the
-    window-count reduction)."""
-    prep = prepare_packed(problem, it, x0, sigma, storage_dtype)
-    return solve_packed_prepared(prep, interpret=interpret)
-
-
-def solve_lanes(problem, it, x0, sigma: float, *, storage_dtype=None,
-                interpret=False):
-    """Full batched solve through the fused kernels.
-
-    problem/it: standard batched pytrees with LEADING batch axis B
-    (B % 128 == 0 on hardware; any B in interpret mode); x0 (B, nx).
-    ``storage_dtype``: see prepare_lanes (bf16 stage-data streaming).
-    Returns ws (B, N+1, nz) like every other backend.
-    """
-    prep = prepare_lanes(problem, it, x0, sigma, storage_dtype)
-    return solve_prepared(prep, interpret=interpret)
-
-
-# ------------------------------------------------- shared-stage (broadcast)
-
-def shared_width(Bt: int, nx: int, nu: int, dtype) -> int:
-    """Replication width for shared-stage tensors: wide enough for
-    every consumer kernel's lane chunk (each slices down to its own —
-    chunks are powers of two, so the max covers all)."""
-    return max(vector_sweep_chunk(Bt, nx, nu, dtype),
-               forward_chunk(Bt, nx, nu, dtype))
+        DN, rhoN = problem.D[:, -1, :, nu:], it.rho[:, -1]
+        HN = HN + jnp.einsum("bci,bc,bcj->bij", DN, rhoN, DN,
+                             precision=HIGHEST)
+        hN = hN - jnp.einsum("bci,bc->bi", DN, rhoN * params.g[:, -1],
+                             precision=HIGHEST)
+    K, d = backward(
+        problem.A, problem.B, problem.c, params.H[:, :-1],
+        params.h[:, :-1], problem.D[:, :-1], it.rho[:, :-1],
+        it.rho[:, :-1] * params.g[:, :-1], HN, hN, impl=impl)
+    ws, xN = forward(problem.A, problem.B, problem.c, K, d, x0, impl=impl)
+    return stack_terminal(ws, xN, nu)
 
 
 def prepare_shared(problem, it, x0, sigma: float):
-    """Broadcast-mode preparation: ONE shared model, B scenarios.
+    """Data for ONE shared model serving B scenarios.
 
-    The reference holds exactly one ``LQRModel`` per process behind all
-    solvers (lqr_model.hpp:66-89); a scenario batch against it should
-    never pay B HBM copies of the stage matrices.  This is the lanes
-    preparation for that case:
+    The reference holds one ``LQRModel`` per process behind all solvers
+    (lqr_model.hpp:66-89); a scenario batch against it never pays B
+    copies of the stage matrices:
 
       * ``problem`` is UNBATCHED — except ``c``, which may carry a
-        leading batch axis (B, N, nx) for per-scenario drift (the
-        bench/MPC scenario pattern);
-      * ``it.rho`` must be UNBATCHED (N+1, nc): the penalty-folded
-        matrices are shared only while rho is; w/y/z may be unbatched
-        or batched (B, N+1, ...);
-      * ``x0`` (B, nx) sets the scenario batch size.
+        leading batch axis (B, N, nx) for per-scenario drift;
+      * ``it.rho`` must be UNBATCHED (N+1, nc): the folded matrices are
+        shared only while the penalty is; w/y/z may be batched;
+      * ``x0`` (B, nx) sets the batch size.
 
-    The stage matrices (A, B, H~, D, rho) are replicated to ONE lane
-    chunk (``shared_width`` lanes) instead of B copies — the
-    (B, N, nz, nz) blow-up of prepare_lanes (23.5 GB for mass-spring
-    nz=50 at B=4096) shrinks by ~B/W.  Returns the argument tuple for
-    ``solve_shared_prepared``.
+    Shared tensors get a leading axis of 1.  Returns the dict that
+    ``shared_factors`` and ``solve_shared_cached`` take.
     """
-    nu, nx, nc = problem.nu, problem.nx, problem.nc
+    nu, nx, nc, N = problem.nu, problem.nx, problem.nc, problem.N
     nz = nu + nx
-    N = problem.N
     dt = problem.H.dtype
     if problem.A.ndim != 3:
         raise ValueError(
             "prepare_shared takes an UNBATCHED problem (one shared "
-            "model); use prepare_lanes for per-instance models"
-        )
+            "model); use solve_batched for per-instance models")
     rho = it.rho
     if rho.ndim != 2:
         raise ValueError(
             "prepare_shared needs a shared (unbatched) rho (N+1, nc): "
             "the folded stage matrices are shared only while the "
-            "penalty is"
-        )
-    x0 = jnp.asarray(x0)
+            "penalty is")
+    x0 = jnp.asarray(x0, dt)
     Bt = x0.shape[0]
-    W = min(Bt, shared_width(Bt, nx, nu, dt))
 
-    rep = lambda x: jnp.broadcast_to(x[..., None], x.shape + (W,))
-    eye_z = jnp.eye(nz, dtype=dt)
-    A_sh = rep(problem.A)
-    B_sh = rep(problem.B)
-    H_sh = rep(problem.H[:-1] + sigma * eye_z)
-    D_sh = rep(problem.D[:-1])
-    rho_sh = rep(rho[:-1])
-
-    # Terminal matrix fold (shared): P_N = Hxx + sigma I + Dx^T rho Dx.
-    PN = problem.H[-1, nu:, nu:] + sigma * jnp.eye(nx, dtype=dt)
-    if nc > 0:
-        DNx = problem.D[-1, :, nu:]
-        PN = PN + jnp.einsum("ci,c,cj->ij", DNx, rho[-1], DNx)
-    PN_sh = rep(PN)
-
-    # Per-instance vector pieces: fully iterate-folded linear cost
-    # hf = h - sigma w - D^T (rho g) (update_problem_data semantics,
-    # lqr_solver.hpp:41-56, with the penalty fold pre-applied — the
-    # matrix sweep runs on zero vectors, so the vector sweep carries
-    # the whole linear recursion).
+    # Per-instance linear cost with the whole iterate fold applied
+    # (update_problem_data, lqr_solver.hpp:41-56): the matrix sweep runs
+    # on zero vectors and the vector sweep carries the linear recursion.
     bc = lambda x, tail: jnp.broadcast_to(x, (Bt,) + tail)
-    w_b = bc(it.w, (N + 1, nz))
-    hf = problem.h[None] - sigma * w_b
+    hf = problem.h[None] - sigma * bc(it.w, (N + 1, nz))
     if nc > 0:
         inv_rho = jnp.where(rho > 0, 1.0 / jnp.where(rho > 0, rho, 1.0),
                             0.0)
         g = bc(it.z, (N + 1, nc)) - inv_rho[None] * bc(it.y, (N + 1, nc))
-        hf = hf - jnp.einsum("kcz,bkc->bkz", problem.D, rho[None] * g)
-    c_b = problem.c if problem.c.ndim == 3 else bc(problem.c, (N, nx))
-    c_l = to_lanes(c_b.astype(dt))
-    hf_l = to_lanes(hf[:, :-1])
-    pN_l = jnp.moveaxis(hf[:, -1, nu:], 0, -1)   # (nx, B)
-    x0_l = jnp.moveaxis(x0.astype(dt), 0, -1)
+        hf = hf - jnp.einsum("kcz,bkc->bkz", problem.D, rho[None] * g,
+                             precision=HIGHEST)
+    c = problem.c if problem.c.ndim == 3 else problem.c[None]
 
-    return (A_sh, B_sh, H_sh, D_sh, rho_sh, PN_sh,
-            c_l, hf_l, pN_l, x0_l, nu)
-
-
-def solve_shared_prepared(prep, *, interpret=False):
-    """Run the shared-stage pipeline -> ws (B, N+1, nz).
-
-    Three kernels: (1) the matrix sweep — backward_lanes with factor
-    export on the ONE replicated chunk of shared stage data (the whole
-    rho-dependent Riccati matrix recursion, done once, not per
-    scenario); (2) the per-instance vector sweep on those factors
-    (backward_vectors_lanes(shared=True) — the reference's
-    backward_without_factorization split, lqr_kernel.hpp:149-178,
-    reused here because the affine terms are the only per-scenario
-    quantities); (3) the shared-map closed-loop rollout
-    (forward_lanes(shared=True)).
-    """
-    (A_sh, B_sh, H_sh, D_sh, rho_sh, PN_sh,
-     c_l, hf_l, pN_l, x0_l, nu) = prep
-    N, nx = A_sh.shape[0], A_sh.shape[1]
-    W = A_sh.shape[-1]
-    nz = H_sh.shape[1]
-    nc = D_sh.shape[1]
-    dt = A_sh.dtype
-
-    zc = jnp.zeros((N, nx, W), dt)
-    zh = jnp.zeros((N, nz, W), dt)
-    zrg = jnp.zeros((N, nc, W), dt)
-    zpN = jnp.zeros((nx, W), dt)
-    K, _, M, _, P, L = backward_lanes(
-        A_sh, B_sh, zc, H_sh, zh, D_sh, rho_sh, zrg, PN_sh, zpN,
-        interpret=interpret, export_factors=True,
-    )
-
-    # Chunk-minor interleaving: the pinned matrix streams cross HBM
-    # once per time step instead of once per batch chunk (DMA elision
-    # on the unchanged lane-block index; measured 1.4x on the forward).
-    # Pc = P_{k+1} c_k pre-folded once per solve (P appears in the
-    # vector recursion only through this product).
-    Pc = jnp.einsum("kij,kjb->kib", P[..., 0], c_l,
-                    precision=jax.lax.Precision.HIGHEST)
-    d, v = backward_vectors_lanes(
-        A_sh, B_sh, c_l, hf_l, P, K, L, pN_l,
-        interpret=interpret, shared=True, interleave=True, Pc=Pc,
-    )
-    ws, xN = forward_lanes(M, v, K, d, x0_l, interpret=interpret,
-                           shared=True, interleave=True)
-
-    ws = from_lanes(ws)                          # (B, N, nz)
-    xN = jnp.moveaxis(xN, -1, 0)                 # (B, nx)
-    wN = jnp.concatenate(
-        [jnp.zeros(xN.shape[:-1] + (nu,), ws.dtype), xN], axis=-1
-    )
-    return jnp.concatenate([ws, wN[:, None, :]], axis=1)
+    PN = problem.H[-1, nu:, nu:] + sigma * jnp.eye(nx, dtype=dt)
+    if nc > 0:
+        DNx = problem.D[-1, :, nu:]
+        PN = PN + jnp.einsum("ci,c,cj->ij", DNx, rho[-1], DNx,
+                             precision=HIGHEST)
+    return dict(
+        A=problem.A[None], B=problem.B[None], c=c,
+        H=(problem.H[:-1] + sigma * jnp.eye(nz, dtype=dt))[None],
+        D=problem.D[None, :-1], rho=rho[None, :-1], PN=PN[None],
+        hf=hf[:, :-1], pN=hf[:, -1, nu:], x0=x0, nu=nu)
 
 
-def solve_shared(problem, it, x0, sigma: float, *, interpret=False):
+def shared_factors(prep, *, impl=None):
+    """The matrix half of a shared solve: (K, P, Huu^{-1}), each shared
+    (leading axis 1).  Valid while the model and rho are unchanged —
+    the reference's factorization state (lqr_kernel.hpp:93-101)."""
+    A, H, rho = prep["A"], prep["H"], prep["rho"]
+    N, nx, nz = A.shape[1], A.shape[-1], H.shape[-1]
+    zeros = lambda *s: jnp.zeros((1, N) + s, A.dtype)
+    K, _, P, Hinv = backward(
+        A, prep["B"], zeros(nx), H, zeros(nz), prep["D"], rho,
+        jnp.zeros_like(rho), prep["PN"], jnp.zeros((1, nx), A.dtype),
+        export_factors=True, impl=impl)
+    return K, P, Hinv
+
+
+def solve_shared_cached(prep, factors, *, impl=None):
+    """Shared solve on pre-built factors: vector sweep + rollout."""
+    K, P, Hinv = factors
+    A, Bm, c = prep["A"], prep["B"], prep["c"]
+    d = backward_vectors(A, Bm, c, prep["hf"], P, K, Hinv, prep["pN"],
+                         impl=impl)
+    ws, xN = forward(A, Bm, c, K, d, prep["x0"], impl=impl)
+    return stack_terminal(ws, xN, prep["nu"])
+
+
+def solve_shared(problem, it, x0, sigma: float, *, impl=None):
     """Shared-model batched solve (see prepare_shared for the contract).
-    Returns ws (B, N+1, nz), matching solve_lanes on a broadcast batch."""
+    Returns ws (B, N+1, nz), matching solve_batched on a broadcast batch."""
     prep = prepare_shared(problem, it, x0, sigma)
-    return solve_shared_prepared(prep, interpret=interpret)
-
-
-def shared_factors(prep, *, interpret=False):
-    """Run ONLY the matrix sweep of the shared pipeline and return the
-    cached factors (K, M, P, L) — the reference's factorization state
-    that ``backward_without_factorization`` reuses
-    (lqr_kernel.hpp:93-101).  Valid while the model matrices and rho
-    are unchanged; solve_shared_cached then runs pure vector work per
-    solve (the steady-state MPC/serving pattern: update_problem_data +
-    backward_without_factorization + forward across replans)."""
-    (A_sh, B_sh, H_sh, D_sh, rho_sh, PN_sh,
-     _c, _hf, _pN, _x0, nu) = prep
-    N, nx = A_sh.shape[0], A_sh.shape[1]
-    W = A_sh.shape[-1]
-    nz = H_sh.shape[1]
-    nc = D_sh.shape[1]
-    dt = A_sh.dtype
-    zc = jnp.zeros((N, nx, W), dt)
-    zh = jnp.zeros((N, nz, W), dt)
-    zrg = jnp.zeros((N, nc, W), dt)
-    zpN = jnp.zeros((nx, W), dt)
-    K, _, M, _, P, L = backward_lanes(
-        A_sh, B_sh, zc, H_sh, zh, D_sh, rho_sh, zrg, PN_sh, zpN,
-        interpret=interpret, export_factors=True,
-    )
-    return (K, M, P, L)
-
-
-def solve_shared_cached(prep, factors, *, interpret=False):
-    """Shared solve on pre-built factors: vector sweep + rollout only
-    (the with/without-factorization split at serving granularity).
-    ``factors`` from shared_factors(prep) — rebuild them whenever the
-    model matrices or rho change; the per-solve inputs (c, hf, pN, x0)
-    come from ``prep`` as usual."""
-    (A_sh, B_sh, _H, _D, _rho, _PN,
-     c_l, hf_l, pN_l, x0_l, nu) = prep
-    K, M, P, L = factors
-    Pc = jnp.einsum("kij,kjb->kib", P[..., 0], c_l,
-                    precision=jax.lax.Precision.HIGHEST)
-    d, v = backward_vectors_lanes(
-        A_sh, B_sh, c_l, hf_l, P, K, L, pN_l,
-        interpret=interpret, shared=True, interleave=True, Pc=Pc,
-    )
-    ws, xN = forward_lanes(M, v, K, d, x0_l, interpret=interpret,
-                           shared=True, interleave=True)
-    ws = from_lanes(ws)
-    xN = jnp.moveaxis(xN, -1, 0)
-    wN = jnp.concatenate(
-        [jnp.zeros(xN.shape[:-1] + (nu,), ws.dtype), xN], axis=-1
-    )
-    return jnp.concatenate([ws, wN[:, None, :]], axis=1)
+    return solve_shared_cached(prep, shared_factors(prep, impl=impl),
+                               impl=impl)

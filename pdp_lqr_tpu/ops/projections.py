@@ -4,7 +4,7 @@ The reference stores box bounds ``e_lb/e_ub`` on the model
 (lqr_model.hpp:22-24) but never consumes them — the projection step
 belongs to the unreleased ADMM outer loop ("conic" appears only in the
 paper title, README.md:3-4).  This module supplies that step,
-TPU-native: everything is elementwise/branch-free and batches over
+vectorized: everything is elementwise/branch-free and batches over
 arbitrary leading axes (stages, instances).
 
 Cone layout: constraint rows of a stage may be grouped into

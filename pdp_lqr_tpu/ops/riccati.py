@@ -4,7 +4,7 @@ Reference counterparts (cited per function):
   include/clqr/lqr/lqr_kernel.hpp   — stage math (steps, terminal, forward)
   include/clqr/lqr/lqr_solver.hpp   — the backward/forward loops
 
-Design notes (TPU-first):
+Design notes:
   * The per-stage workspace vector (``LQRKernelData``) becomes a scanned
     carry ``(Lxx_next, p_next)`` plus stacked per-stage outputs
     ``(L, lp)`` — no mutable state.
@@ -130,10 +130,10 @@ def backward_step_folded(carry, stage):
     """One backward Riccati stage on penalty-folded data.
 
     Reference math: LQRKernel::step_with_factorization
-    (lqr_kernel.hpp:121-146) minus the fold — on TPU the fold
+    (lqr_kernel.hpp:121-146) minus the fold — here the fold
     (lqr_kernel.hpp:106-112) runs *outside* the scan as one batched
     einsum over all stages, so the sequential loop body stays lean and
-    D/rho/g never enter the scan's stacked inputs (HBM traffic).
+    D/rho/g never enter the scan's stacked inputs (memory traffic).
     """
     Lxx_next, p_next = carry
     A, B, c, H, h = stage

@@ -1,14 +1,14 @@
-"""Throughput-optimized dense Riccati — the TPU fast path.
+"""Throughput-optimized dense Riccati — the XLA fast path.
 
 Same mathematics as ops/riccati.py (reference lqr_kernel.hpp:103-147)
-but reorganized for TPU execution rather than transcribed:
+but reorganized for batched execution rather than transcribed:
 
   * The value function is carried as (P, p) directly instead of the
     reference's Cholesky square-root (Lxx), removing the (nz, nz)
     factorization from the sequential loop.  The only per-step solve is
     with the (nu, nu) SPD input Hessian Huu = R~ + B^T P+ B, done by a
     fully *unrolled* Cholesky (linalg.cholesky_unrolled) that compiles
-    to straight-line VPU arithmetic over the batch — XLA's generic
+    to straight-line elementwise arithmetic over the batch — XLA's generic
     cholesky/triangular_solve lowerings are loop-heavy and orders of
     magnitude slower at these sizes.
   * The backward scan emits feedback gains (K, d) per stage, so the

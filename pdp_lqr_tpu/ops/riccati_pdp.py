@@ -10,7 +10,7 @@ thread, couples segments through a condensed block-tridiagonal system
 over segment-boundary states, and rolls out all segments in parallel
 (lqr_solver_parallel.hpp:142-238).
 
-TPU-first re-design decisions:
+Re-design decisions:
   * Segments are uniform (N % S == 0) and the reduction is ONE
     ``lax.scan`` body ``vmap``-ed over the segment axis — the OpenMP
     fork/join becomes SIMD batching; the same axis later shards across

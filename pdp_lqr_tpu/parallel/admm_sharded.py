@@ -1,13 +1,13 @@
 """Pod-scale conic ADMM: the full outer loop under shard_map.
 
-Composes the ADMM iteration (solvers/admm.py math) with the multi-chip
-fused-PDP inner solve (parallel/pdp_sharded_fused) on a
+Composes the ADMM iteration (solvers/admm.py math) with the multi-device
+PDP inner solve (the segment scans of ops/riccati_pdp) on a
 ("batch", "time") mesh:
 
   * problem instances shard over "batch" (pure data parallelism);
   * the horizon shards over "time" exactly like the reference's
-    OpenMP segments (lqr_solver_parallel.hpp:70-146), with the
-    boundary all-gather riding ICI once per iteration;
+    OpenMP segments (lqr_solver_parallel.hpp:70-146), with one
+    boundary all-gather per iteration;
   * projections and dual updates are stage-local (zero collectives);
   * per-instance residual maxima reduce with one pmax over "time";
   * ``cached_factors`` ports the parallel solver's
@@ -41,21 +41,152 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pdp_lqr_tpu.config import f32_matmul_precision
-from pdp_lqr_tpu.ops import projections
-from pdp_lqr_tpu.parallel.pdp_sharded_fused import (
-    segment_factors_local,
-    segment_solve_cached,
-    segment_solve_local,
-)
+from pdp_lqr_tpu.ops import condensed, linalg, projections, riccati_pdp
 from pdp_lqr_tpu.problem import LQRProblem
 from pdp_lqr_tpu.solvers.admm import ADMMInfo, ADMMSettings
 
 _CACHE: dict = {}
 
 
+# ---------------------------------------------- segment pieces (XLA scans)
+# One "time" device's share of the PDP inner solve, inside a shard_map
+# body with a "time" axis of size S.  Arguments in the lanes layout
+# (Nl, ..., Bl) of the loop below; the per-instance math runs
+# batch-leading through the segment scans of ops/riccati_pdp.
+
+def _bl(x):
+    """Lanes (Nl, ..., Bl) -> batch-leading (Bl, Nl, ...)."""
+    return jnp.moveaxis(x, -1, 0)
+
+
+def _gather_time(x):
+    """(Bl, ...) per device -> (Bl, S, ...) over the "time" axis."""
+    return jnp.moveaxis(jax.lax.all_gather(x, "time", axis=0), 0, 1)
+
+
+def _reduce(S, A, B, c, Hf, hf, PNb, pNb):
+    """Segment Riccati reduction, batch-leading folded stage data.
+
+    The last segment starts from the terminal cost-to-go; the others
+    from the zero boundary node (lqr_kernel_parallel.hpp:51-67)."""
+    is_last = jax.lax.axis_index("time") == S - 1
+    w = is_last.astype(A.dtype)
+    nx = A.shape[-1]
+
+    def one(Ak, Bk, ck, Hk, hk, PN, pN):
+        carry0 = (w * linalg.cholesky(PN), w * pN,
+                  jnp.eye(nx, dtype=A.dtype),
+                  jnp.zeros((nx, nx), A.dtype), jnp.zeros((nx,), A.dtype))
+        carry, (L, lp, G, Fn) = jax.lax.scan(
+            riccati_pdp._segment_backward_step, carry0,
+            (Ak, Bk, ck, Hk, hk), reverse=True)
+        Lxx0, p0, F0, C0, f0 = carry
+        return L, lp, G, Fn, Lxx0 @ Lxx0.T, F0, C0, p0, f0
+
+    return jax.vmap(one)(A, B, c, Hf, hf, PNb, pNb)
+
+
+def _rollout(S, A, B, c, L, lp, G, xhat, uhat):
+    """Per-segment rollout from the condensed boundary solution
+    (lqr_solver_parallel.hpp:217-237); returns (ws_l (Nl, nz, Bl),
+    xN (Bl, nx) replicated over "time")."""
+    i = jax.lax.axis_index("time")
+    nu = B.shape[-1]
+
+    def one(x0_seg, uh, Ak, Bk, ck, Lk, lpk, Gk):
+        def step(x, stage):
+            Aj, Bj, cj, Lj, lpj, Gj = stage
+            u = -(lpj[:nu] + Lj[nu:, :nu].T @ x) + Gj @ uh
+            u = linalg.solve_lower_T(Lj[:nu, :nu], u)
+            return Aj @ x + Bj @ u + cj, jnp.concatenate([u, x])
+
+        return jax.lax.scan(step, x0_seg, (Ak, Bk, ck, Lk, lpk, Gk))
+
+    x_end, ws = jax.vmap(one)(jnp.take(xhat, i, axis=1),
+                              jnp.take(uhat, i, axis=1),
+                              A, B, c, L, lp, G)
+    xN = jax.lax.psum(jnp.where(i == S - 1, x_end, jnp.zeros_like(x_end)),
+                      "time")
+    return jnp.moveaxis(ws, 0, -1), xN
+
+
+def segment_solve_local(S, A_l, B_l, c_l, H_l, h_l, D_l, rho_l, rg_l,
+                        PNb, pNb, x0):
+    """Full PDP inner solve: fold, segment reduction, boundary
+    all-gather, replicated condensed solve, rollout.  PNb/pNb
+    (Bl, nx[, nx]) is the folded terminal cost (read by the last
+    device only)."""
+    A, B, c, H, h = (_bl(x) for x in (A_l, B_l, c_l, H_l, h_l))
+    D, rho, rg = _bl(D_l), _bl(rho_l), _bl(rg_l)
+    Hf = H + jnp.einsum("bkci,bkc,bkcj->bkij", D, rho, D)
+    hf = h - jnp.einsum("bkci,bkc->bki", D, rg)
+    L, lp, G, _, P0, F0, C0, p0, f0 = _reduce(S, A, B, c, Hf, hf, PNb, pNb)
+    fac = condensed.cholesky_backward(
+        _gather_time(P0), _gather_time(F0), _gather_time(C0))
+    xhat, uhat = condensed.cholesky_forward(
+        fac, _gather_time(p0), _gather_time(f0), x0)
+    return _rollout(S, A, B, c, L, lp, G, xhat, uhat)
+
+
+def segment_factors_local(S, A_l, B_l, H_l, D_l, rho_l, PNb):
+    """Matrix half of the PDP solve at the current rho — the cached
+    half of the with/without-factorization split
+    (lqr_solver_parallel.hpp:148-154).  Returns an opaque pytree for
+    segment_solve_cached."""
+    A, B, H, D, rho = (_bl(x) for x in (A_l, B_l, H_l, D_l, rho_l))
+    Bl, Nl, nx = A.shape[0], A.shape[1], A.shape[-1]
+    Hf = H + jnp.einsum("bkci,bkc,bkcj->bkij", D, rho, D)
+    zeros = lambda *s: jnp.zeros((Bl, Nl) + s, A.dtype)
+    L, _, G, Fn, P0, F0, C0, _, _ = _reduce(
+        S, A, B, zeros(nx), Hf, zeros(Hf.shape[-1]), PNb,
+        jnp.zeros((Bl, nx), A.dtype))
+    is_last = jax.lax.axis_index("time") == S - 1
+    LxxN = is_last.astype(A.dtype) * linalg.cholesky(PNb)
+    fac = condensed.cholesky_backward(
+        _gather_time(P0), _gather_time(F0), _gather_time(C0))
+    return (L, G, Fn, LxxN, fac)
+
+
+def segment_solve_cached(S, factors, A_l, B_l, c_l, hf_l, pNb, x0):
+    """Vector-only PDP solve on cached factors
+    (lqr_solver_parallel.hpp:190-211 + the cached condensed forward).
+    ``hf_l`` (Nl, nz, Bl) is the fully folded linear cost
+    h - sigma w - D^T (rho g); pNb (Bl, nx) its terminal row."""
+    L, G, Fn, LxxN, fac = factors
+    A, B, c, hf = (_bl(x) for x in (A_l, B_l, c_l, hf_l))
+    nu = B.shape[-1]
+    is_last = jax.lax.axis_index("time") == S - 1
+    # Cached Lxx_{k+1} per stage: the next stage's factor, and at the
+    # segment end the boundary node (zero unless last segment).
+    Lxx_next = jnp.concatenate([L[:, 1:, nu:, nu:], LxxN[:, None]], axis=1)
+
+    def one(pN, Ak, Bk, ck, hk, Lk, Lxxk, Fk):
+        def step(carry, stage):
+            p_next, f_next = carry
+            Aj, Bj, cj, hj, Lj, Lxxn, Fj = stage
+            Pb = Lxxn @ (Lxxn.T @ cj) + p_next
+            lpj = hj + jnp.concatenate([Bj, Aj], axis=-1).T @ Pb
+            lu = linalg.solve_lower(Lj[:nu, :nu], lpj[:nu])
+            p = lpj[nu:] - Lj[nu:, :nu] @ lu
+            d = linalg.solve_lower_T(Lj[:nu, :nu], -lu)
+            f = Fj @ (cj + Bj @ d) + f_next
+            return (p, f), jnp.concatenate([lu, p])
+
+        p0 = is_last.astype(A.dtype) * pN
+        (p_s, f_s), lp = jax.lax.scan(
+            step, (p0, jnp.zeros_like(pN)),
+            (Ak, Bk, ck, hk, Lk, Lxxk, Fk), reverse=True)
+        return lp, p_s, f_s
+
+    lp, p0, f0 = jax.vmap(one)(pNb, A, B, c, hf, L, Lxx_next, Fn)
+    xhat, uhat = condensed.cholesky_forward(
+        fac, _gather_time(p0), _gather_time(f0), x0)
+    return _rollout(S, A, B, c, L, lp, G, xhat, uhat)
+
+
 def _build(mesh: Mesh, nu: int, nc: int,
            cones: Tuple[projections.ConeSpec, ...],
-           settings: ADMMSettings, has_shift: bool, interpret: bool):
+           settings: ADMMSettings, has_shift: bool):
     S = mesh.shape["time"]
     sigma = settings.sigma
     alpha = settings.alpha
@@ -186,18 +317,17 @@ def _build(mesh: Mesh, nu: int, nc: int,
 
             if factors is None:
                 # Terminal penalty fold in x-block form (same math as
-                # pdp_sharded_fused.fold_terminal, pre-sliced DNx).
+                # the pdp_sharded terminal step, pre-sliced DNx).
                 PNb = HNs + jnp.einsum(
                     "bci,bc,bcj->bij", DNx, rhoN_vec, DNx)
                 ws_l, xN = segment_solve_local(
-                    S, interpret,
-                    A_l, B_l, c_l, Hs_l, h_t, D_l,
+                    S, A_l, B_l, c_l, Hs_l, h_t, D_l,
                     rho_vec, rho_vec * g, PNb, pNb, x0,
                 )
             else:
                 hf = h_t - DTv_l(rho_vec * g)
                 ws_l, xN = segment_solve_cached(
-                    S, interpret, factors,
+                    S, factors,
                     A_l, B_l, c_l, hf, pNb, x0,
                 )
             wN_t = jnp.concatenate(
@@ -298,7 +428,7 @@ def _build(mesh: Mesh, nu: int, nc: int,
             PNb = HNs + jnp.einsum("bci,bc,bcj->bij", DNx, rhoN_vec, DNx)
             rho_vec = rho[None, None, :] * rsc_l
             return segment_factors_local(
-                S, interpret, A_l, B_l, Hs_l, D_l, rho_vec, PNb)
+                S, A_l, B_l, Hs_l, D_l, rho_vec, PNb)
 
         stats0 = (
             jnp.asarray(0, jnp.int32), jnp.full((Bl,), -1, jnp.int32),
@@ -403,13 +533,11 @@ def solve(
     settings: ADMMSettings = ADMMSettings(),
     state=None,
     soc_shift=None,
-    interpret: bool = False,
 ):
     """Pod-sharded conic ADMM solve of a batch of problems.
 
     problem/x0: batched pytrees (leading axis B divisible by the
-    "batch" mesh size; horizon N divisible by the "time" size; the
-    local batch shard must satisfy Pallas lane alignment on hardware).
+    "batch" mesh size; horizon N divisible by the "time" size).
     ``state`` warm-starts from a previous solve's returned state.
 
     ``settings.cached_factors`` enables the parallel solver's
@@ -427,10 +555,9 @@ def solve(
     nu, nc, nx = problem.nu, problem.nc, problem.nx
     has_shift = soc_shift is not None
 
-    key = (mesh, nu, nc, cones, settings, has_shift, interpret)
+    key = (mesh, nu, nc, cones, settings, has_shift)
     if key not in _CACHE:
-        _CACHE[key] = _build(mesh, nu, nc, cones, settings, has_shift,
-                             interpret)
+        _CACHE[key] = _build(mesh, nu, nc, cones, settings, has_shift)
     fn = _CACHE[key]
 
     if state is None:

@@ -1,15 +1,12 @@
-"""Data-parallel fused solves: shard_map over "batch" x Pallas kernels.
+"""Data-parallel fused solves: shard_map over "batch" x the lanes sweeps.
 
 The scaling configuration for serving: problem instances shard across
-every chip of the mesh (pure data parallelism — zero collectives), and
-each chip runs the fused batch-in-lanes kernels of ops/pallas_riccati
+every device of the mesh (pure data parallelism — zero collectives),
+and each device runs the batched Riccati sweeps of ops/pallas_riccati
 on its local shard.  Combines with the "time"-axis PDP sharding
 (parallel/pdp_sharded.py) only when single-solve latency at very long
-horizons matters more than throughput; for solves/s this path is
-optimal — ICI carries nothing.
-
-Local shard size must satisfy the kernels' lane alignment
-(B/n_devices % 128 == 0 on hardware).
+horizons matters more than throughput; for solves/s this path needs no
+interconnect traffic at all.
 """
 
 from __future__ import annotations
@@ -23,7 +20,7 @@ from pdp_lqr_tpu.problem import ADMMIterates, LQRProblem
 
 
 def solve(mesh: Mesh, problem: LQRProblem, it: ADMMIterates, x0,
-          sigma: float, *, interpret: bool = False):
+          sigma: float):
     """Batched inner solve, batch axis sharded over every mesh device.
 
     problem/it: batched pytrees (leading axis B, divisible by the mesh
@@ -33,7 +30,7 @@ def solve(mesh: Mesh, problem: LQRProblem, it: ADMMIterates, x0,
     axes = mesh.axis_names
 
     def body(p, i, x):
-        return pr.solve_lanes(p, i, x, sigma, interpret=interpret)
+        return pr.solve_batched(p, i, x, sigma)
 
     spec = P(axes)  # shard leading batch dim over all axes jointly
     fn = jax.shard_map(
@@ -46,27 +43,20 @@ def solve(mesh: Mesh, problem: LQRProblem, it: ADMMIterates, x0,
 
 
 def solve_fused_dp(mesh: Mesh, problem: LQRProblem, x0, cones=(),
-                   settings=None, state=None, soc_shift=None, *,
-                   interpret: bool = False, single_kernel="auto",
-                   storage_dtype=None):
+                   settings=None, state=None, soc_shift=None):
     """FULL conic ADMM loop (solvers/admm.solve_fused) under shard_map,
     batch axis sharded over every mesh device — zero collectives.
 
     The data-parallel composition of the outer loop: projections,
     duals, exact residuals, and per-instance adaptive rho are all
-    instance-local, so each chip runs the entire constrained solve on
-    its local shard; nothing rides ICI.  ``single_kernel=True`` runs
-    each local iteration as ONE pallas_call (ops/pallas_admm) — the
-    short-horizon fast path — and ``storage_dtype=jnp.bfloat16``
-    streams the stage data narrow (both per solve_fused).  For
-    horizon sharding ("time" axis) use parallel/admm_sharded.solve,
-    which exchanges segment boundary factors per iteration (the
-    single-kernel iteration cannot: its backward/forward fusion has no
-    collective seam).
+    instance-local, so each device runs the entire constrained solve
+    on its local shard; nothing crosses the interconnect.  For horizon
+    sharding ("time" axis) use parallel/admm_sharded.solve, which
+    exchanges segment boundary factors per iteration.
 
     problem/x0 (and state, if given): batched pytrees, leading axis B
-    divisible by the mesh device count with lane-aligned local shards
-    on hardware; soc_shift is unbatched (replicated).
+    divisible by the mesh device count; soc_shift is unbatched
+    (replicated).
 
     Returns (ws, ADMMState, ADMMInfo), all batch-sharded.
     """
@@ -80,10 +70,7 @@ def solve_fused_dp(mesh: Mesh, problem: LQRProblem, x0, cones=(),
     rep = P()
 
     def body(p, x, st, sh):
-        return admm.solve_fused(
-            p, x, cones, settings, st, sh, interpret=interpret,
-            single_kernel=single_kernel, storage_dtype=storage_dtype,
-        )
+        return admm.solve_fused(p, x, cones, settings, st, sh)
 
     in_specs = [spec, spec]
     args = [problem, x0]

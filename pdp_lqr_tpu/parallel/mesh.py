@@ -12,10 +12,11 @@ def make_mesh(batch: int = 1, time: int = 1, devices=None) -> Mesh:
     """Create a ("batch", "time") mesh from the available devices.
 
     batch * time must equal the device count used.  The "time" axis
-    carries horizon segments (keep it within one ICI domain: the
-    condensed boundary exchange all-gathers over it every solve); the
-    "batch" axis carries independent problem instances (embarrassingly
-    parallel — safe to map over DCN).
+    carries horizon segments (the condensed boundary exchange
+    all-gathers over it every solve); the "batch" axis carries
+    independent problem instances (no communication).  GPUs of one
+    host reach each other all to all, so the mesh shape follows the
+    algorithm, not a device topology.
     """
     if devices is None:
         devices = jax.devices()

@@ -2,16 +2,15 @@
 
 The reference is strictly single-process (OpenMP shared memory,
 SURVEY.md section 2); scaling beyond one host here follows the standard
-JAX recipe: ``jax.distributed.initialize`` connects the hosts over DCN,
-after which ``jax.devices()`` spans the full slice and the same
-("batch", "time") mesh code works unchanged — XLA routes the
-condensed-boundary all-gather over ICI within a host/slice and the
-(embarrassingly parallel) batch axis over DCN.
+JAX recipe: ``jax.distributed.initialize`` connects the processes,
+after which ``jax.devices()`` spans every process's devices and the
+same ("batch", "time") mesh code works unchanged.
 
-Axis-placement rule of thumb (scaling-book recipe): put the "time"
-axis within one ICI domain — the PDP boundary exchange
-(parallel/pdp_sharded.py) all-gathers nx*nx blocks every solve — and
-let "batch" span hosts, since batch instances never communicate.
+Axis placement follows the algorithm: the "time" axis carries the PDP
+boundary exchange (parallel/pdp_sharded.py all-gathers nx*nx blocks
+every solve), so it stays within one host, whose GPUs all reach each
+other over NVLink at the same rate; "batch" may span hosts, since
+batch instances never communicate.
 """
 
 from __future__ import annotations
@@ -29,9 +28,9 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Connect this process to the multi-host slice.
 
-    On TPU pods with standard orchestration (GKE/queued resources) all
-    arguments auto-detect; pass them explicitly for manual bring-up.
-    No-op if already initialized.
+    Pass the coordinator address (``host:port``), the process count
+    and this process's id; only cluster schedulers JAX knows can
+    supply them itself.  No-op if already initialized.
     """
     try:
         jax.distributed.initialize(
@@ -48,7 +47,7 @@ def make_pod_mesh(time: int = 1) -> Mesh:
     """("batch", "time") mesh over every device in the (multi-host) slice.
 
     ``time`` devices per horizon-sharding group are taken contiguously
-    so each group stays within one host's ICI domain whenever
+    so each group stays within one host whenever
     time <= local_device_count.
     """
     devices = jax.devices()
@@ -59,7 +58,7 @@ def make_pod_mesh(time: int = 1) -> Mesh:
     if time > local:
         raise ValueError(
             f"time={time} spans hosts (local={local}); keep the horizon "
-            "axis within one ICI domain"
+            "axis within one host"
         )
     arr = np.asarray(devices).reshape(n // time, time)
     return Mesh(arr, axis_names=("batch", "time"))

@@ -13,7 +13,7 @@ Mapping of the reference's concurrency machinery onto the mesh:
                                              (P,F,C,p,f) boundary
                                              factors over "time" (each
                                              is nx*nx or nx — a few KB —
-                                             so one ICI hop, no
+                                             so one exchange, no
                                              reduce-scatter needed)
   serial condensed solve on thread 0      -> condensed solve REPLICATED
     (:145)                                   on every time-device

@@ -1,9 +1,9 @@
-"""Stage-stacked LQ problem model — the TPU-native ``LQRModel``.
+"""Stage-stacked LQ problem model — the batched ``LQRModel``.
 
 Reference counterpart: include/clqr/lqr_model.hpp.  The reference keeps a
 ``std::vector<Node>`` of per-stage Eigen matrices with ragged terminal
 shapes (``Node`` at lqr_model.hpp:8-64: terminal stage has no controls).
-Ragged shapes do not vectorize on TPU, so here every stage field is one
+Ragged shapes do not vectorize, so here every stage field is one
 stacked array over the horizon, the terminal stage is padded to the full
 ``nz = nu + nx`` width, and a leading batch axis (added by ``jax.vmap``)
 batches problem instances.

@@ -8,22 +8,22 @@ forward — lqr_solver.hpp:9-28) as pure functions plus a one-shot
   sequential — Riccati recursion via lax.scan (reference LQRSolver);
                square-root (Cholesky) value function
   pdp        — segmented parallel Riccati + condensed boundary system
-               (reference LQRParallelSolver); multi-chip variant in
-               parallel.pdp_sharded
+               (reference LQRParallelSolver); multi-device variant
+               in parallel.pdp_sharded
   kkt        — batched block-tridiagonal LDLt of the full-horizon KKT
                (reference QDLDLSolver, dense-block re-design)
-  assoc      — log-depth associative-scan Riccati (TPU-native, no
-               reference counterpart)
+  assoc      — log-depth associative-scan Riccati (no reference
+               counterpart)
   dense      — P-form recursion with unrolled small-matrix solves; the
                XLA throughput backend
-  (pallas)   — ops.pallas_riccati: fused batch-in-lanes kernels, used
-               directly or through admm.solve_fused — the TPU
-               speed-of-light path
+  (lanes)    — ops.pallas_riccati: batch-minor sweeps (a Pallas-Triton
+               kernel on the GPU, XLA elsewhere), used directly or
+               through admm.solve_fused — the batched serving path
 
   admm       — conic ADMM outer loop around any of the above
                (admm.solve per instance, admm.solve_fused batch-level,
-               parallel.admm_sharded pod-level)
+               parallel.admm_sharded multi-device)
   realtime   — B=1 real-time MPC path: the cached-factor inner solve
-               materialized as one dense MXU matvec, early-exit
+               materialized as one dense matvec, early-exit
                while_loop replans at 1 kHz rates
 """

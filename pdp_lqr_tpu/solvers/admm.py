@@ -19,7 +19,7 @@ exactly on the interface the reference defines:
              iterations ride the reference's without_factorization
              fast path (lqr_solver.hpp:65-70).
 
-TPU shape of the loop: refactor-solves happen on a fixed cadence
+Shape of the loop: refactor-solves happen on a fixed cadence
 (``rho_update_interval``) so control flow is identical across a
 vmapped batch — no data-dependent branching, no host sync; convergence
 is tracked per instance as a mask, and iterations between refactors
@@ -34,6 +34,7 @@ from typing import Optional, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 
+from pdp_lqr_tpu.config import f32_matmul_precision
 from pdp_lqr_tpu.ops import projections
 from pdp_lqr_tpu.problem import ADMMIterates, LQRProblem
 
@@ -65,32 +66,20 @@ class ADMMSettings:
     uniform_rho: bool = False     # solve_fused: adapt ONE shared rho
     #   for the whole batch from the max-over-batch residual imbalance
     #   instead of per-instance rho.  Trades per-instance adaptivity
-    #   for batch-shared factors: required for cached_factors in the
-    #   shared-stage mode (the cached (P, L, K) then stream from one
-    #   pinned lane chunk — the two biggest levers composed).
-    cached_factors: bool = False  # solve_fused (both paths): reuse
-    #   the per-stage (P, chol(Huu), K, M) factors across iterations
+    #   for batch-shared factors: with a shared model and
+    #   cached_factors, one copy of (K, P, L) serves the whole batch.
+    cached_factors: bool = False  # solve_fused: reuse
+    #   the per-stage (K, P, chol(Huu)) factors across iterations
     #   while rho is unchanged and run the vector-only backward sweep
     #   (the reference's backward_without_factorization,
     #   lqr_solver.hpp:65-70) — refactors automatically when any
     #   instance's rho moves.  Costs ~(2 nx^2 + nu nx + nu^2) N B words
     #   of HBM for the factor carry.
-    rho_ladder: tuple = ()        # solve_fused SPLIT mode: static rho
-    #   rung grid (e.g. (0.01, 0.1, 1.0, 10.0)).  Factors are built
-    #   once per rung (pinned streams, R rungs stacked on rows) and
-    #   each instance selects its rung in-kernel; adaptation moves
-    #   instances to the nearest rung (log space) on the OSQP
-    #   imbalance rule — PER-INSTANCE adaptive rho with batch-shared
-    #   factor streams (the middle ground between uniform_rho and the
-    #   per-instance replicated path).  Implies uniform_rho=False.
-    diag_cost: bool = False       # solve_fused SPLIT mode: assert the
-    #   stage costs H are diagonal (true for the quadrotor /
-    #   centroidal / mass-spring models and most LQ trackers).  The
-    #   residual H-terms then stream the nz-entry diagonal instead of
-    #   the (nz, nz) blocks — the forward+tail kernel's biggest pinned
-    #   stream and matvecs collapse.  Verified when the problem is
-    #   concrete; under jit the caller vouches (wrong use only skews
-    #   the reported/adaptive residuals, never the trajectories).
+    rho_ladder: tuple = ()        # solve_fused: static rho rung grid
+    #   (e.g. (0.01, 0.1, 1.0, 10.0)).  Each instance's rho starts on
+    #   and adapts to the nearest rung (log space) on the OSQP
+    #   imbalance rule — per-instance adaptive rho on a fixed set of
+    #   values.  Excludes uniform_rho.
     early_exit: bool = False      # solve_fused: stop when EVERY batch
     #   instance converges (lax.while_loop instead of the fixed-trip
     #   scan).  Big win for warm-started serving batches; keep False
@@ -108,10 +97,8 @@ class ADMMState:
     """Warm-startable iterate state (the reference's ws/ys/zs vectors).
 
     ``factors`` (solve_fused with cached_factors only) carries the
-    per-stage (K, M, P, chol(Huu), rho-at-factor) tensors in the lanes
-    layout — in the shared SPLIT mode, the row-packed
-    ([A;K], [B;L], [M;K], Pc, rho-at-factor) stream form the split
-    kernels consume — so a warm-started solve skips even its FIRST
+    per-stage (K, P, Huu^-1) tensors (batch-leading) plus the
+    rho they were built at, so a warm-started solve skips even its FIRST
     refactorization while rho and the problem data are unchanged —
     the reference's steady-state MPC pattern (update_problem_data +
     backward_without_factorization + forward across replans).  Opaque:
@@ -405,6 +392,7 @@ def solve(
     return w, ADMMState(w=w, z=z, y=y, rho=rho), info
 
 
+@f32_matmul_precision
 def solve_fused(
     problem,
     x0,
@@ -412,51 +400,32 @@ def solve_fused(
     settings: ADMMSettings = ADMMSettings(),
     state: Optional[ADMMState] = None,
     soc_shift=None,
-    interpret: bool = False,
-    single_kernel="auto",
-    storage_dtype=None,
     residual_weights=None,
+    sweep: Optional[str] = None,
 ):
-    """Batch-fused conic ADMM: inner solves via the Pallas lane kernels.
+    """Batch-fused conic ADMM: one loop over the batched Riccati sweeps.
 
-    The production serving path: ``problem``/``x0`` carry a leading
-    batch axis B (B % 128 == 0 on hardware) and every ADMM iteration
-    runs ONE fused backward/forward kernel pair over the whole batch
-    (ops/pallas_riccati) — no per-instance vmap, no factor cache, so
-    the penalty rho adapts *per instance* on the usual cadence without
-    any refactor bookkeeping.  The iteration loop is a single
-    ``lax.scan``.  Math is identical to ``solve``.
-
-    Static (per-batch-invariant) stage data is transposed to the lanes
-    layout once; only the iterate-dependent vectors move per iteration.
-
-    ``single_kernel=True`` runs each iteration as ONE pallas_call
-    (ops/pallas_admm): backward + forward + projection + duals +
-    residual maxima fused, gains spilled to VMEM instead of HBM — the
-    short-horizon fast path (the (K, d) spill bounds N; see module
-    doc).  The default ``"auto"`` picks it whenever the spill fits at
-    the 128-lane floor (it is the measured-fastest path there: 30.4k
-    vs 25.6k solves/s at B=1024, N=64 on one v5e) and falls back to
-    the two-kernel pair for long horizons / large states.
-
-    ``storage_dtype`` (e.g. jnp.bfloat16, single_kernel only) streams
-    the batch-invariant stage tensors (A, B, c, H+sigma I, h, D) at the
-    narrower width; the kernel upcasts at load, so iterates, bounds,
-    projections, and residuals keep full precision while the dominant
-    HBM traffic halves.  The solution inherits the bf16 rounding of the
-    problem DATA (~1e-2 relative on H), same tradeoff as the inner
-    solve's bf16 mode (ops/pallas_riccati.prepare_lanes).
+    The serving path: ``problem``/``x0`` carry a leading batch axis B
+    and every iteration runs ONE backward sweep and ONE rollout over the
+    whole batch (ops/pallas_riccati) — no per-instance vmap — followed
+    by the projection, dual and residual tail, which XLA fuses.  The
+    iteration loop is a single ``lax.scan`` (or ``lax.while_loop`` with
+    ``early_exit``).  Math is identical to ``solve``; rho adapts per
+    instance on the usual cadence.
 
     A ``problem`` WITHOUT a leading batch axis (``problem.A.ndim == 3``;
-    ``c`` may still be batched for per-scenario drift) selects the
-    shared-stage broadcast mode: the stage data lives in HBM as ONE
-    replicated lane chunk (pinned-block streams, ops/pallas_admm
-    shared=True) while iterates, rho, and x0 stay per-instance — one
-    model serving B scenarios, the reference's ownership shape
-    (lqr_model.hpp:66-89).  Shared mode requires the single-kernel
-    iteration (the two-kernel pair has no shared path) and is
-    incompatible with cached_factors (per-instance rho makes the
-    factors per-instance).
+    ``c`` may still be batched for per-scenario drift) is a shared
+    model: its stage data stays in device memory once, with a leading
+    axis of 1, while iterates, rho and x0 are per instance — one model
+    serving B scenarios, the reference's ownership shape
+    (lqr_model.hpp:66-89).
+
+    ``settings.cached_factors`` reuses the per-stage factors while rho
+    is unchanged and runs the vector-only sweep (lqr_solver.hpp:65-70);
+    with a shared model and ``uniform_rho`` the factors are shared too.
+    ``settings.rho_ladder`` snaps each instance's adapted rho to the
+    nearest rung.  ``sweep`` picks the sweep implementation
+    (pallas_riccati.choose_impl; None chooses by platform).
 
     Returns (ws (B, N+1, nz), ADMMState (batched), ADMMInfo (batched)).
     """
@@ -468,702 +437,161 @@ def solve_fused(
     dt = problem.H.dtype
     shared_mode = problem.A.ndim == 3
     x0 = jnp.asarray(x0, dt)
-    if shared_mode:
-        Bb, N1 = x0.shape[0], problem.h.shape[0]
-    else:
-        Bb, N1 = problem.h.shape[0], problem.h.shape[1]
-    N = N1 - 1
+    Bb = x0.shape[0]
+    N = problem.A.shape[-3]
     nu, nx, nc = problem.nu, problem.nx, problem.nc
     nz = nu + nx
     ladder = tuple(sorted(float(r) for r in settings.rho_ladder))
-    if shared_mode and settings.cached_factors \
-            and not settings.uniform_rho and not ladder:
-        raise ValueError(
-            "shared-stage cached_factors needs uniform_rho=True (or a "
-            "rho_ladder): per-instance rho would make the cached "
-            "factors per-instance, defeating the pinned-chunk streams"
-        )
     if ladder and settings.uniform_rho:
         raise ValueError("rho_ladder IS the per-instance alternative "
                          "to uniform_rho — set one, not both")
 
     if nc == 0:
-        from pdp_lqr_tpu.problem import ADMMIterates as It
-
-        it = It(
+        it = ADMMIterates(
             w=jnp.zeros(problem.h.shape, dt),
             y=jnp.zeros(problem.e_lb.shape, dt),
             z=jnp.zeros(problem.e_lb.shape, dt),
             rho=jnp.zeros(problem.e_lb.shape, dt),
         )
-        if shared_mode:
-            ws = pr.solve_shared(problem, it, x0, sigma,
-                                 interpret=interpret)
-        else:
-            ws = pr.solve_lanes(problem, it, x0, sigma,
-                                interpret=interpret)
+        solve_fn = pr.solve_shared if shared_mode else pr.solve_batched
+        ws = solve_fn(problem, it, x0, sigma, impl=sweep)
         zero = jnp.zeros((Bb,), dt)
         info = ADMMInfo(
             iterations=jnp.ones((Bb,), jnp.int32), r_prim=zero, r_dual=zero,
             converged=jnp.ones((Bb,), bool),
             iter_converged=jnp.ones((Bb,), jnp.int32),
         )
-        st = state
-        if st is None:
-            st = ADMMState(
+        if state is None:
+            state = ADMMState(
                 w=jnp.zeros((Bb,) + problem.h.shape[-2:], dt),
                 z=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
                 y=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
                 rho=jnp.full((Bb,), settings.rho, dt),
             )
-        return ws, st, info
+        return ws, state, info
 
-    if single_kernel == "auto":
-        from pdp_lqr_tpu.ops import pallas_admm as pa
+    # Batch-leading (W, N+1, ...) arrays; a shared tensor has W = 1 and
+    # broadcasts against the per-instance iterates.
+    lead = (lambda x: x[None]) if shared_mode else (lambda x: x)
+    c_b = problem.c if problem.c.ndim == 3 else problem.c[None]
+    A_b, B_b = lead(problem.A), lead(problem.B)
+    H_b, h_b, D_b = lead(problem.H), lead(problem.h), lead(problem.D)
+    lb_b, ub_b = lead(problem.e_lb), lead(problem.e_ub)
+    mask = lead(_con_mask(problem, cones)).astype(dt)     # (W, N+1, nc)
+    eq = lead(jnp.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub))
+    rsc = mask * jnp.where(eq, jnp.asarray(settings.rho_eq_boost, dt), 1.0)
+    Hs_b = H_b[:, :-1] + sigma * jnp.eye(nz, dtype=dt)
+    HN_b = H_b[:, -1, nu:, nu:] + sigma * jnp.eye(nx, dtype=dt)
+    DN_b = D_b[:, -1, :, nu:]                              # (W, nc, nx)
+    uterm = jnp.ones((N + 1, nz), dt).at[-1, :nu].set(0.0)
 
-        # With cached_factors the fused iteration streams (P, L, K)
-        # from HBM and spills only d, so it fits much longer horizons.
-        single_kernel = pa.fits_vmem(
-            N, nx, nu, nc, soc_shift is not None,
-            storage_dtype, dt, cached=settings.cached_factors,
-        )
-    split_mode = shared_mode and not single_kernel
-    if split_mode:
-        # Split (two-kernel) shared iteration: the chunk-minor
-        # interleaved kernel pair of ops/pallas_admm passes (d, v)
-        # through HBM, freeing the grid to elide the pinned stream
-        # re-fetch across batch chunks (the long-horizon serving path
-        # — no VMEM gain spill, shared streams cross HBM once per time
-        # step).  The factor streams are pinned, so factors must be
-        # batch-shared: cached_factors + (under adaptation) uniform_rho.
-        if not settings.cached_factors and not ladder:
-            raise ValueError(
-                "shared-stage two-kernel (split) iteration requires "
-                "cached_factors=True (or a rho_ladder): its backward "
-                "kernel is the cached vector sweep on pinned "
-                "(P, L, K) streams"
-            )
-    elif ladder:
-        raise ValueError("rho_ladder requires the shared split "
-                         "iteration (unbatched problem, "
-                         "single_kernel=False)")
-    if residual_weights is not None and single_kernel:
-        raise ValueError(
-            "residual_weights (unscaled-residual termination) needs "
-            "the two-kernel path — the single-kernel iteration "
-            "accumulates residual maxima in-kernel without weights; "
-            "pass single_kernel=False"
-        )
+    def Dw(w):                                             # (B, N+1, nc)
+        return jnp.sum(D_b * w[:, :, None, :], axis=-1)
 
-    # Everything below lives in the lanes layout — iterate vectors
-    # included — so per-iteration work is the kernel pair plus compact
-    # (rows, B)-tiled elementwise math.  The padded (B, N, nc, nz)
-    # einsum layout of a naive implementation was measured to cost ~10x
-    # the kernel time at B=1024.
-    l3 = lambda x: jnp.moveaxis(x, 0, -1)             # (B, a, b[, c]) -> lanes
-    x0_l = jnp.moveaxis(x0, 0, -1)
-    shift_l = None if soc_shift is None else soc_shift[..., None]
-    eye_z = jnp.eye(nz, dtype=dt)
-    if shared_mode:
-        from pdp_lqr_tpu.ops import pallas_admm as pa
+    def DTy(y):                                            # (B, N+1, nz)
+        return jnp.sum(D_b * y[..., None], axis=-2)
 
-        # ONE replicated lane chunk for the stage streams; terminal
-        # rows (one stage of data) broadcast to the full batch for the
-        # XLA-side terminal update.  With cached factors the kernel's
-        # chunk differs — replicate wide enough for both (chunks are
-        # powers of two; each consumer slices down).
-        if split_mode:
-            # EXACTLY the split kernels' chunk: a wider W would make
-            # the per-iteration _shared_slice of the carry-dependent
-            # factor streams a real copy (~180 MB/iter at N=512)
-            # rather than a no-op.
-            W = pa.split_width(Bb, nx, nu, nc, soc_shift is not None,
-                               storage_dtype, dt,
-                               diag_cost=settings.diag_cost)
-        else:
-            W = pa.admm_chunk(Bb, N, nx, nu, nc, soc_shift is not None,
-                              storage_dtype, dt)
-            if settings.cached_factors:
-                W = max(W, pa.admm_chunk(Bb, N, nx, nu, nc,
-                                         soc_shift is not None,
-                                         storage_dtype, dt,
-                                         cached=True))
-        rep = lambda x: jnp.broadcast_to(x[..., None], x.shape + (W,))
-        bcB = lambda x: jnp.broadcast_to(x[..., None], x.shape + (Bb,))
-        mask1 = _con_mask(problem, cones).astype(dt)  # (N+1, nc)
-        eq1 = jnp.isfinite(problem.e_lb) & (problem.e_lb == problem.e_ub)
-        scale1 = mask1 * jnp.where(
-            eq1, jnp.asarray(settings.rho_eq_boost, dt), 1.0)
-        c_b = problem.c if problem.c.ndim == 3 \
-            else jnp.broadcast_to(problem.c, (Bb,) + problem.c.shape)
-        A_l = rep(problem.A)
-        B_l = rep(problem.B)
-        c_l = pr.to_lanes(c_b)
-        H_l = rep(problem.H[:-1] + sigma * eye_z)
-        Hd_l = None
-        if split_mode and settings.diag_cost:
-            if not isinstance(problem.H, jax.core.Tracer):
-                import numpy as _np
+    def Hw(w):
+        """Original H w; the terminal row's u part is zero."""
+        return jnp.sum(H_b * w[:, :, None, :], axis=-1) * uterm
 
-                Hs_np = _np.asarray(problem.H[:-1])
-                offdiag = Hs_np - Hs_np * _np.eye(nz)[None]
-                if _np.abs(offdiag).max() > 0:
-                    raise ValueError(
-                        "diag_cost=True but problem.H has off-diagonal "
-                        f"entries (max {_np.abs(offdiag).max():.2e})")
-            Hd_l = rep(jnp.diagonal(problem.H[:-1], axis1=-2, axis2=-1)
-                       + sigma)
-        Dst_l = rep(problem.D[:-1])
-        h_stream = rep(problem.h[:-1])
-        lb_st = rep(problem.e_lb[:-1])
-        ub_st = rep(problem.e_ub[:-1])
-        mask_st = rep(scale1[:-1])    # rho-scale-carrying mask stream
-        HN_l = bcB(problem.H[-1, nu:, nu:] + sigma * jnp.eye(nx, dtype=dt))
-        DN_l = bcB(problem.D[-1, :, nu:])             # (nc, nx, B)
-        DallN = bcB(problem.D[-1])                    # (nc, nz, B)
-        if settings.cached_factors or ladder:
-            # W-wide terminal shares for the shared factor build.
-            HN_W = rep(problem.H[-1, nu:, nu:]
-                       + sigma * jnp.eye(nx, dtype=dt))
-            DN_W = rep(problem.D[-1, :, nu:])
-            scaleN_1 = scale1[-1]                     # (nc,)
-        hN_base = bcB(problem.h[-1])                  # (nz, B)
-        lbN = bcB(problem.e_lb[-1])
-        ubN = bcB(problem.e_ub[-1])
-        maskN = bcB(mask1[-1])
-        scaleN = bcB(scale1[-1])
-        h_absmax = jnp.full((Bb,), jnp.max(jnp.abs(problem.h)), dt)
-    else:
-        mask_b = _con_mask(problem, cones).astype(dt)  # (B, N+1, nc)
-        mask = l3(mask_b)                              # (N+1, nc, B)
-        eq_l = l3(jnp.isfinite(problem.e_lb)
-                  & (problem.e_lb == problem.e_ub))
-        rsc = mask * jnp.where(
-            eq_l, jnp.asarray(settings.rho_eq_boost, dt), 1.0)
-        A_l = pr.to_lanes(problem.A)
-        B_l = pr.to_lanes(problem.B)
-        c_l = pr.to_lanes(problem.c)
-        H_l = pr.to_lanes(problem.H[:, :-1] + sigma * eye_z)
-        Dst_l = pr.to_lanes(problem.D[:, :-1])        # (N, nc, nz, B)
-        Dall_l = pr.to_lanes(problem.D)               # (N+1, nc, nz, B)
-        HN_l = l3(problem.H[:, -1, nu:, nu:]
-                  + sigma * jnp.eye(nx, dtype=dt))
-        DN_l = l3(problem.D[:, -1, :, nu:])           # (nc, nx, B)
-        DallN = Dall_l[-1]
-        h_base = l3(problem.h)                        # (N+1, nz, B)
-        h_stream = h_base[:-1]
-        hN_base = h_base[-1]
-        h_absmax = jnp.max(jnp.abs(h_base), axis=(0, 1))  # (B,)
-        uterm = jnp.ones((N + 1, nz, 1), dt).at[-1, :nu].set(0.0)
-        lb_l = l3(problem.e_lb)
-        ub_l = l3(problem.e_ub)
-        lb_st, ubN = lb_l[:-1], ub_l[-1]
-        ub_st, lbN = ub_l[:-1], lb_l[-1]
-        mask_st, maskN = rsc[:-1], mask[-1]   # stream carries rho scale
-        scaleN = rsc[-1]
-
-    if not shared_mode:
-        def Dw_l(w):
-            """(N+1, nc, B) = D w, unrolled over nz (compact layouts)."""
-            acc = Dall_l[:, :, 0, :] * w[:, None, 0, :]
-            for zi in range(1, nz):
-                acc = acc + Dall_l[:, :, zi, :] * w[:, None, zi, :]
-            return acc
-
-        def Hw_l(wv):
-            """(N+1, nz, B) = H w with the ORIGINAL H (sigma removed) —
-            exact-dual residual term, unrolled like Dw_l."""
-            acc = H_l[:, :, 0, :] * wv[:-1, None, 0, :]
-            for zi in range(1, nz):
-                acc = acc + H_l[:, :, zi, :] * wv[:-1, None, zi, :]
-            acc = acc - sigma * wv[:-1]
-            accN = HN_l[:, 0, :] * wv[-1, None, nu, :]
-            for xi in range(1, nx):
-                accN = accN + HN_l[:, xi, :] * wv[-1, None, nu + xi, :]
-            accN = accN - sigma * wv[-1, nu:]
-            wN = jnp.concatenate([jnp.zeros((nu, Bb), dt), accN], axis=0)
-            return jnp.concatenate([acc, wN[None]], axis=0)
-
-        def DTy_l(yv):
-            """(N+1, nz, B) = D^T y, unrolled over nc."""
-            acc = Dall_l[:, 0, :, :] * yv[:, 0, None, :]
-            for ci in range(1, nc):
-                acc = acc + Dall_l[:, ci, :, :] * yv[:, ci, None, :]
-            return acc
-
-        def project_l(v):
-            out = jnp.clip(v, lb_l, ub_l)
-            for off, dim, kind in projections.normalize_cones(cones):
-                blk = v[:, off : off + dim, :]
-                if shift_l is not None:
-                    s = shift_l[:, off : off + dim, :]
-                    blk = projections.project_cone(blk + s, kind, axis=-2) - s
-                else:
-                    blk = projections.project_cone(blk, kind, axis=-2)
-                out = out.at[:, off : off + dim, :].set(blk)
-            return out
-
-    if state is None:
-        state = ADMMState(
-            w=jnp.zeros((Bb,) + problem.h.shape[-2:], dt),
-            z=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
-            y=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
-            rho=jnp.full((Bb,), settings.rho, dt),
-        )
-
-    interval = max(1, settings.rho_update_interval)
-    cones3 = projections.normalize_cones(cones)
-
-    # Narrow-storage aliases for the single-kernel path (upcast at
-    # load in ops/pallas_admm; XLA-side terminal math stays full-width).
-    if storage_dtype is not None and not (single_kernel or split_mode):
-        raise ValueError("storage_dtype requires single_kernel=True "
-                         "or the shared split iteration (use "
-                         "pallas_riccati.solve_lanes storage_dtype "
-                         "for the inner solve)")
-    _st = (lambda x: x.astype(storage_dtype)) if storage_dtype else \
-        (lambda x: x)
-    A_k, B_k, c_k = _st(A_l), _st(B_l), _st(c_l)
-    H_k, h_k, D_k = _st(H_l), _st(h_stream), _st(Dst_l)
-    if split_mode and settings.diag_cost:
-        H_k = _st(Hd_l)          # kernel B streams the diagonal only
-    Wst = A_k.shape[-1]          # stream lane width (W shared, B else)
-
-    # Split-mode bf16 serving: the pinned factor streams (P, L, K, M)
-    # ride the storage dtype too (the split kernels upcast at load) —
-    # the same consistent-perturbation contract as the bf16 stage
-    # streams.
-    fac_dt = storage_dtype if (split_mode and storage_dtype) else dt
-    if shared_mode and (settings.cached_factors or ladder):
-        def _build_shared_factors(rho_op):
-            """Matrix sweep + factor export on the W-wide pinned chunk
-            (batch-uniform rho enforced above): the cached (P, L, K, M)
-            stream shared — the matrix half of the iteration never pays
-            B in HBM."""
-            rho_u = rho_op[0]
-            rho_vec = rho_u * mask_st            # (N, nc, W)
-            PN_W = HN_W
-            for ci in range(nc):
-                wrow = (rho_u * scaleN_1[ci]) * DN_W[ci]
-                PN_W = PN_W + DN_W[ci][:, None, :] * wrow[None, :, :]
-            K, _, M, _, P, L = pr.backward_lanes(
-                A_l, B_l, jnp.zeros((N, nx, W), dt), H_l,
-                jnp.zeros((N, nz, W), dt),
-                Dst_l, rho_vec, jnp.zeros((N, nc, W), dt),
-                PN_W, jnp.zeros((nx, W), dt),
-                interpret=interpret, export_factors=True,
-            )
-            return (K.astype(fac_dt), M.astype(fac_dt),
-                    P.astype(fac_dt), L.astype(fac_dt), rho_op)
-
-    if split_mode and not ladder:
-        def _xla_fold(wzy_op, rho_op):
-            """hf = h - sigma w - D^T (rho m z - y) from the packed
-            iterates — the XLA fallback fold, used once at entry and on
-            refactor iterations (kernel B emits hf in steady state)."""
-            hf_n = h_stream[..., :1] - sigma * wzy_op[:, :nz]
-            for ci in range(nc):
-                rg_c = (rho_op[None, :] * scale1[:-1, ci][:, None]
-                        * wzy_op[:, nz + ci]
-                        - wzy_op[:, nz + nc + ci])        # (N, B)
-                hf_n = hf_n - rg_c[:, None, :] * Dst_l[:, ci, :, :1]
-            return hf_n
-
-        def _build_split_factors(rho_op):
-            """Factor build + the per-scenario Pc = P_{k+1} c fold —
-            computed ONLY on refactor iterations (P enters the vector
-            recursion only through this product; folding it per
-            iteration in XLA was measured to cost more than the
-            kernel's P-stream saving).  The factor carry rides PACKED
-            on the leading per-stage row axis — AK = [A; K],
-            BL = [B; L] for kernel A, MK = [M; K] for kernel B — so
-            each kernel issues half the pinned matrix windows (the
-            split pair is per-window-issue-bound; K's bytes are
-            duplicated across AK/MK, but each kernel reads exactly
-            what it read unpacked)."""
-            K, M, P, L, r = _build_shared_factors(rho_op)
-            Pc = jnp.einsum("kij,kjb->kib",
-                            P[..., 0].astype(dt), c_l,
-                            precision=jax.lax.Precision.HIGHEST)
-            return (jnp.concatenate([A_k, K], axis=1),
-                    jnp.concatenate([B_k, L], axis=1),
-                    jnp.concatenate([M, K], axis=1), Pc, r)
-
-        # Loop-invariant pinned bound stack for kernel B's packed
-        # window: [lb | ub | rho-mask (| shift)] on a leading axis.
-        bnd_parts = [lb_st, ub_st, mask_st]
-        if shift_l is not None:
-            bnd_parts.append(
-                jnp.broadcast_to(shift_l[:-1], (N, nc, Wst)))
-        bnd_st = jnp.stack(bnd_parts, axis=1)    # (N, 3+s, nc, Wst)
-
-    ladder_fac = None
-    if ladder:
-        # R rungs' factors stacked on rows — built ONCE per solve
-        # (loop-invariant: no refactor cond, no factor carry), selected
-        # per lane in-kernel via one-hot folds.
-        parts = [_build_shared_factors(jnp.full((Bb,), r, dt))
-                 for r in ladder]
-        ladder_fac = tuple(
-            jnp.concatenate([p[j] for p in parts], axis=1)
-            for j in range(4)
-        )                                     # (K, M, P, L) stacked
-
-    def _finish_stats(rho, stats,
-                      r_prim, r_dual, prim_scale, dual_scale):
-        """Shared convergence / adaptive-rho tail (per-instance).
-        Returns (rho_new, stats_new); callers assemble their carry."""
-        k_it, iter_conv, _, _, _ = stats
-        conv = (r_prim <= settings.eps_abs + settings.eps_rel * prim_scale) \
-            & (r_dual <= settings.eps_abs + settings.eps_rel * dual_scale)
-        k_next = k_it + 1
-        iter_conv = jnp.where(conv & (iter_conv < 0), k_next, iter_conv)
-        if settings.adaptive_rho:
-            tiny = jnp.asarray(1e-12, dt)
-            rp_rel = r_prim / jnp.maximum(prim_scale, tiny)
-            rd_rel = r_dual / jnp.maximum(dual_scale, tiny)
-            if settings.uniform_rho:
-                # ONE shared rho for the whole batch: adapt on the
-                # worst-case imbalance so the factors stay batch-shared.
-                rp_rel = jnp.max(rp_rel)
-                rd_rel = jnp.max(rd_rel)
-            ratio = jnp.sqrt(
-                jnp.maximum(rp_rel, tiny) / jnp.maximum(rd_rel, tiny)
-            )
-            upd = ((ratio > 5.0) | (ratio < 0.2)) & (k_next % interval == 0)
-            target = jnp.clip(rho * ratio, settings.rho_min,
-                              settings.rho_max)
-            if ladder:
-                # Snap to the nearest rung in log space: per-instance
-                # adaptation on the static grid the factors were built
-                # at (OperatorLadder's rule, batched).
-                rungs_l = jnp.asarray(ladder, dt)
-                idx = jnp.argmin(
-                    jnp.abs(jnp.log(rungs_l)[:, None]
-                            - jnp.log(target)[None, :]), axis=0)
-                target = rungs_l[idx]
-            rho = jnp.where(upd, target, rho)
-        stats = (k_next, iter_conv, r_prim, r_dual, conv)
-        return rho, stats
-
-    def _terminal_tail(wN, zN, yN, rho, stats, fac,
-                       stage_new, xN, res):
-        """Terminal stage (no control): relax/project/dual + residual
-        merge + convergence/adaptive-rho — shared by the single-kernel
-        and split iterations (their kernels cover stages 0..N-1).
-
-        ``stage_new`` is the iteration's stage-row output leaves (the
-        kernel outputs, format per body); the assembled carry is
-        stage_new + (w_newN, z_newN, y_newN, rho, stats) + fac.
-
-        The terminal rows (wN, zN, yN) live as SEPARATE carry leaves:
-        slicing w[:-1] for the kernels and concatenating the terminal
-        row back each iteration cost ~6 full-trajectory HBM copies per
-        iteration (measured ~1.6 GB/iter at N=512 B=4096)."""
-        w_tN = jnp.concatenate([jnp.zeros((nu, Bb), dt), xN], axis=0)
-        z_tN = jnp.einsum("cxb,xb->cb", DN_l, xN)
-        w_newN = alpha * w_tN + (1.0 - alpha) * wN
-        rhoN_m = rho[None, :] * scaleN
-        vN = alpha * z_tN + (1.0 - alpha) * zN + jnp.where(
-            scaleN > 0, yN / jnp.maximum(rhoN_m, 1e-30), 0.0)
-        projN = jnp.clip(vN, lbN, ubN)
-        for off, dim, kind in cones3:
-            blk = vN[off : off + dim]
-            if shift_l is not None:
-                sN = shift_l[-1, off : off + dim]
-                blk = projections.project_cone(blk + sN, kind, axis=0) - sN
+    def project(v):
+        out = jnp.clip(v, lb_b, ub_b)
+        for off, dim, kind in projections.normalize_cones(cones):
+            blk = v[..., off : off + dim]
+            if soc_shift is not None:
+                s = soc_shift[..., off : off + dim]
+                blk = projections.project_cone(blk + s, kind, axis=-1) - s
             else:
-                blk = projections.project_cone(blk, kind, axis=0)
-            projN = projN.at[off : off + dim].set(blk)
-        z_newN = projN * maskN
-        y_newN = yN + rhoN_m * (
-            alpha * z_tN + (1.0 - alpha) * zN - z_newN
-        )
+                blk = projections.project_cone(blk, kind, axis=-1)
+            out = out.at[..., off : off + dim].set(blk)
+        return out
 
-        def HwN(v):                     # original terminal H (u rows 0)
-            hx = jnp.einsum("xyb,yb->xb", HN_l, v[nu:]) - sigma * v[nu:]
-            return jnp.concatenate([jnp.zeros((nu, Bb), dt), hx], axis=0)
-
-        DwN = jnp.einsum("czb,zb->cb", DallN, w_newN)
-        dwN = wN - w_tN
-        zt_termN = rhoN_m * (
-            (alpha - 1.0) * (z_tN - zN) + (zN - z_newN)
-        )
-        dvecN = (
-            (1.0 - alpha) * HwN(dwN) + sigma * dwN
-            + jnp.einsum("czb,cb->zb", DallN, zt_termN)
-        )
-        amaxN = lambda x: jnp.max(jnp.abs(x), axis=0)
-        r_prim = jnp.maximum(res[0], amaxN(DwN - z_newN))
-        r_dual = jnp.maximum(res[1], amaxN(dvecN))
-        prim_scale = jnp.maximum(
-            res[2], jnp.maximum(amaxN(DwN), amaxN(z_newN))
-        )
-        dual_scale = jnp.maximum(
-            res[3],
-            jnp.maximum(
-                jnp.maximum(
-                    amaxN(HwN(w_newN)),
-                    amaxN(jnp.einsum("czb,cb->zb", DallN, y_newN)),
-                ),
-                h_absmax,
-            ),
-        )
-
-        rho_n, stats_n = _finish_stats(rho, stats, r_prim, r_dual,
-                                       prim_scale, dual_scale)
-        return tuple(stage_new) + (w_newN, z_newN, y_newN,
-                                   rho_n, stats_n) + tuple(fac), None
-
-    def iteration_1k(carry, _):
-        """Whole iteration as ONE pallas_call (ops/pallas_admm)."""
-        from pdp_lqr_tpu.ops import pallas_admm as pa
-
-        w, z, y, wN, zN, yN, rho, stats, *fac = carry
-        rho_row = rho[None, :]                       # (1, B)
-
-        # Terminal fold in XLA (tiny); zero-D rows contribute nothing,
-        # so raw rho works and z/y are invariantly masked.
-        PN = HN_l
-        pN = hN_base[nu:] - sigma * wN[nu:]
-        for ci in range(nc):
-            rho_cN = rho * scaleN[ci]          # per-row rho (eq boost)
-            wrow = rho_cN[None, :] * DN_l[ci]
-            PN = PN + DN_l[ci][:, None, :] * wrow[None, :, :]
-            pN = pN - (rho_cN * zN[ci] - yN[ci])[None, :] * DN_l[ci]
-
-        factors_arg = None
-        if settings.cached_factors:
-            # Same with/without-factorization split as the two-kernel
-            # path (reference lqr_solver.hpp:65-70): while rho is
-            # unchanged, stream the cached (P, L, K) into the fused
-            # iteration and redo only the vector recursion in-kernel.
-            # The refactor branch rebuilds via the exporting backward
-            # kernel — matrix factors are iterate-independent, so its
-            # vector inputs are zeros and its (d, v) outputs discarded.
-            K_f, M_f, P_f, L_f, rho_f = fac[0]
-            refactor = jnp.any(rho != rho_f)
-
-            if shared_mode:
-                full_fn = _build_shared_factors
-            else:
-                def full_fn(rho_op):
-                    rho_vec = rho_op[None, None, :] * rsc
-                    K, _, M, _, P, L = pr.backward_lanes(
-                        A_l, B_l, c_l, H_l, jnp.zeros((N, nz, Bb), dt),
-                        Dst_l, rho_vec[:-1], jnp.zeros((N, nc, Bb), dt),
-                        PN, jnp.zeros((nx, Bb), dt), interpret=interpret,
-                        export_factors=True,
-                    )
-                    return (K, M, P, L, rho_op)
-
-            fac_new = jax.lax.cond(
-                refactor, full_fn,
-                lambda _: (K_f, M_f, P_f, L_f, rho_f), rho,
-            )
-            fac = [fac_new]
-            factors_arg = (fac_new[2], fac_new[3], fac_new[0])
-
-        shift_st = None
-        if shift_l is not None:
-            shift_st = jnp.broadcast_to(shift_l[:-1], (N, nc, Wst))
-        w_st, z_st, y_st, xN, res = pa.admm_iter_lanes(
-            A_k, B_k, c_k, H_k, h_k, D_k,
-            lb_st, ub_st, mask_st, shift_st,
-            w, z, y, rho_row, PN, pN, x0_l,
-            nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
-            factors=factors_arg, shared=shared_mode,
-            interpret=interpret,
-        )
-
-        return _terminal_tail(wN, zN, yN, rho, stats, fac,
-                              (w_st, z_st, y_st), xN, res)
-
-    def iteration_split(carry, _):
-        """Shared two-kernel iteration: the chunk-interleaved
-        (backward-vector, forward+tail) pallas pair with pinned
-        model/factor streams (ops/pallas_admm split kernels) — the
-        long-horizon shared serving path.  Stage iterates ride ONE
-        packed (N, nz+2nc, B) carry array [w | z | y] so each kernel
-        issues a single per-scenario iterate window per grid step.  In
-        the non-ladder flow, kernel B also emits the NEXT iteration's
-        folded cost hf (carried), so kernel A is the slim PREFOLD
-        vector sweep (no D/h/mask streams, no iterate read)."""
-        from pdp_lqr_tpu.ops import pallas_admm as pa
-
-        if ladder:
-            wzy, wN, zN, yN, rho, stats, *fac = carry
-        else:
-            wzy, hf, wN, zN, yN, rho, stats, *fac = carry
-        rho_row = rho[None, :]                       # (1, B)
-
-        # Terminal linear fold (per-scenario vector, XLA — tiny).
-        pN = hN_base[nu:] - sigma * wN[nu:]
-        for ci in range(nc):
-            rho_cN = rho * scaleN[ci]
-            pN = pN - (rho_cN * zN[ci] - yN[ci])[None, :] * DN_l[ci]
-
-        shift_st = None
-        if shift_l is not None:
-            shift_st = jnp.broadcast_to(shift_l[:-1], (N, nc, Wst))
-
-        if ladder:
-            # Loop-invariant R-rung factor stack + per-lane one-hot
-            # selectors (rho always holds exact rung values).
-            K_c, M_c, P_c, L_c = ladder_fac
-            oh = jnp.stack(
-                [(rho == jnp.asarray(r, dt)).astype(dt) for r in ladder],
-                axis=0,
-            )
-            dv_l = pa.admm_bwd_vec_lanes(
-                rho_row, pN, A_k, B_k, h_k, D_k, mask_st, P_c, L_c,
-                K_c, c_k, wzy,
-                nu=nu, sigma=sigma, ladder_oh=oh, interpret=interpret,
-            )
-            wzy_new, xN, res = pa.admm_fwd_update_lanes(
-                rho_row, x0_l, M_c, K_c, H_k, D_k, lb_st, ub_st,
-                mask_st, shift_st, dv_l, wzy,
-                nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
-                ladder_oh=oh, interpret=interpret,
-            )
-            return _terminal_tail(wN, zN, yN, rho, stats, fac,
-                                  (wzy_new,), xN, res)
-
-        # fac slots carry the PACKED streams (AK, BL, MK, Pc): see
-        # _build_split_factors.  The refactor branch also recomputes
-        # hf (the carried one embeds the PREVIOUS rho).
-        AK_f, BL_f, MK_f, Pc_f, rho_f = fac[0]
-        refactor = jnp.any(rho != rho_f)
-        fac_new, hf_use = jax.lax.cond(
-            refactor,
-            lambda op: (_build_split_factors(op[0]),
-                        _xla_fold(op[1], op[0])),
-            lambda op: ((AK_f, BL_f, MK_f, Pc_f, rho_f), hf),
-            (rho, wzy),
-        )
-        fac = [fac_new]
-        AK_c, BL_c, MK_c, Pc, _ = fac_new
-
-        dv_l = pa.admm_bwd_vec_prefold_lanes(
-            pN, AK_c, BL_c, c_k, Pc, hf_use,
-            nu=nu, interpret=interpret,
-        )
-        wzy_new, hf_next, xN, res = pa.admm_fwd_update_lanes(
-            rho_row, x0_l, MK_c, None, H_k, D_k, bnd_st, None, None,
-            None, dv_l, wzy,
-            nu=nu, cones=cones3, alpha=alpha, sigma=sigma,
-            h=h_k, interpret=interpret,
-        )
-        return _terminal_tail(wN, zN, yN, rho, stats, fac,
-                              (wzy_new, hf_next), xN, res)
+    def terminal_PN(rho_vec):
+        """Folded terminal matrix HN + Dx^T diag(rho) Dx."""
+        return HN_b + jnp.einsum("wci,wc,wcj->wij", DN_b, rho_vec[:, -1],
+                                 DN_b, precision=jax.lax.Precision.HIGHEST)
 
     if residual_weights is not None:
-        pwt_l = residual_weights[0][..., None]   # (N+1, nc, 1)
-        dwt_l = residual_weights[1][..., None]   # (N+1, nz, 1)
-        wp_ = lambda x: x * pwt_l
-        wd_ = lambda x: x * dwt_l
-        h_absmax = jnp.max(jnp.abs(wd_(h_base)), axis=(0, 1))  # (B,)
+        pwt, dwt = residual_weights            # (N+1, nc), (N+1, nz)
+        wp_ = lambda x: x * pwt
+        wd_ = lambda x: x * dwt
     else:
         wp_ = wd_ = lambda x: x
+    h_absmax = jnp.broadcast_to(
+        jnp.max(jnp.abs(wd_(h_b)), axis=(1, 2)), (Bb,))
+
+    # Shared factors need ONE rho for the batch: the build reads rho[0].
+    shared_fac = shared_mode and settings.uniform_rho
+    fac_rho = (lambda r: r[:1]) if shared_fac else (lambda r: r)
+
+    def build_factors(rho):
+        """Matrix half of the sweep at ``rho``: (K, P, Huu^-1, rho)."""
+        rho_vec = fac_rho(rho)[:, None, None] * rsc
+        Wf = rho_vec.shape[0]
+        zeros = lambda *s: jnp.zeros((Wf,) + s, dt)
+        K, _, P, Hinv = pr.backward(
+            A_b, B_b, zeros(N, nx), Hs_b, zeros(N, nz), D_b[:, :-1],
+            rho_vec[:, :-1], zeros(N, nc), terminal_PN(rho_vec),
+            zeros(nx), export_factors=True, impl=sweep)
+        return K, P, Hinv, rho
+
+    interval = max(1, settings.rho_update_interval)
 
     def iteration(carry, _):
-        w, z, y, rho, stats, *fac = carry    # lanes: w (N+1,nz,B), z/y (N+1,nc,B)
+        w, z, y, rho, stats, *fac = carry     # w (B,N+1,nz), z/y (B,N+1,nc)
         k_it, iter_conv, _, _, _ = stats
-        rho_vec = rho[None, None, :] * rsc
-        inv_rho = jnp.where(
-            rsc > 0, 1.0 / jnp.maximum(rho_vec, 1e-30), 0.0)
-        g = z - inv_rho * y
-
-        h_t = (h_base - sigma * w) * uterm
-        rg = rho_vec * g
-
-        # Terminal linear fold (vector part, every iteration).
-        pN = h_t[-1, nu:]
-        for ci in range(nc):
-            pN = pN - rg[-1, ci][None, :] * DN_l[ci]
-
-        def _full(h_t, rg, rho_vec, pN):
-            # Terminal matrix fold (unrolled over nc on (nx,nx,B)
-            # tiles) — rho-dependent, skipped on cached iterations.
-            PN = HN_l
-            for ci in range(nc):
-                wrow = rho_vec[-1, ci] * DN_l[ci]      # (nx, B)
-                PN = PN + DN_l[ci][:, None, :] * wrow[None, :, :]
-            return pr.backward_lanes(
-                A_l, B_l, c_l, H_l, h_t[:-1], Dst_l, rho_vec[:-1],
-                rg[:-1], PN, pN, interpret=interpret,
-                export_factors=settings.cached_factors,
-            )
+        rho_vec = rho[:, None, None] * rsc
+        inv_rho = jnp.where(rsc > 0, 1.0 / jnp.maximum(rho_vec, 1e-30), 0.0)
+        rg = rho_vec * (z - inv_rho * y)
+        h_t = (h_b - sigma * w) * uterm
+        pN = h_t[:, -1, nu:] - jnp.sum(DN_b * rg[:, -1, :, None], axis=-2)
 
         if settings.cached_factors:
             # The reference's steady-state fast path
             # (backward_without_factorization, lqr_solver.hpp:65-70):
-            # while rho is unchanged, reuse the exported per-stage
-            # factors and redo only the vector recursion.
-            # rho_f is the rho snapshot the factors were built at;
-            # fresh solves start it at the -1 sentinel (always
-            # refactors), warm starts with state.factors skip even the
-            # first refactorization when rho is unchanged.
-            K_f, M_f, P_f, L_f, rho_f = fac[0]
-            refactor = jnp.any(rho != rho_f)
-
-            def full_fn(op):
-                h_t, rg, rho = op
-                # rsc (mask * eq-boost), NOT the plain mask: the factor
-                # build must see the same boosted rho as the vector
-                # folds, or the cached fixed point violates KKT
-                # stationarity by D^T (rho_boost - rho) z on eq rows.
-                K, d, M, v, P, L = _full(
-                    h_t, rg, rho[None, None, :] * rsc, pN)
-                return (K, M, P, L, rho), d, v
-
-            def vec_fn(op):
-                h_t, rg, _ = op
-                hf = (h_t - DTy_l(rg))[:-1]
-                d, v = pr.backward_vectors_lanes(
-                    A_l, B_l, c_l, hf, P_f, K_f, L_f, pN,
-                    interpret=interpret,
-                )
-                return (K_f, M_f, P_f, L_f, rho_f), d, v
-
-            fac_new, d, v = jax.lax.cond(
-                refactor, full_fn, vec_fn, (h_t, rg, rho))
-            K, M = fac_new[0], fac_new[1]
+            # refactor only when some instance's rho moved since the
+            # factors were built (rho_f; fresh solves start at the -1
+            # sentinel), then run the vector-only sweep.
+            K_f, P_f, Hi_f, rho_f = fac[0]
+            fac_new = jax.lax.cond(
+                jnp.any(rho != rho_f), build_factors,
+                lambda _: (K_f, P_f, Hi_f, rho_f), rho)
+            K, P, Hinv, _ = fac_new
             fac = [fac_new]
+            hf = (h_t - DTy(rg))[:, :-1]
+            d = pr.backward_vectors(A_b, B_b, c_b, hf, P, K, Hinv, pN,
+                                    impl=sweep)
         else:
-            K, d, M, v = _full(h_t, rg, rho_vec, pN)
-        # The (M, v) pairing stays on this path: M is either cached
-        # (iterate-independent) or a byproduct of the refactor sweep,
-        # and forward_lanes streams fewer words than the raw dynamics
-        # (measured: raw-(A, B, c) rollout cost the cached path ~9%).
-        ws_l, xN = pr.forward_lanes(M, v, K, d, x0_l, interpret=interpret)
-        wN = jnp.concatenate([jnp.zeros((nu, Bb), dt), xN], axis=0)
-        w_t = jnp.concatenate([ws_l, wN[None]], axis=0)  # (N+1, nz, B)
+            K, d = pr.backward(
+                A_b, B_b, c_b, Hs_b, h_t[:, :-1], D_b[:, :-1],
+                rho_vec[:, :-1], rg[:, :-1], terminal_PN(rho_vec), pN,
+                impl=sweep)
+        ws, xN = pr.forward(A_b, B_b, c_b, K, d, x0, impl=sweep)
+        w_t = pr.stack_terminal(ws, xN, nu)              # (B, N+1, nz)
 
-        z_t = Dw_l(w_t)
+        z_t = Dw(w_t)
         w_new = alpha * w_t + (1.0 - alpha) * w
-        v_z = alpha * z_t + (1.0 - alpha) * z + inv_rho * y
-        z_new = project_l(v_z) * mask
+        z_new = project(alpha * z_t + (1.0 - alpha) * z + inv_rho * y) * mask
         y_new = y + rho_vec * (alpha * z_t + (1.0 - alpha) * z - z_new)
 
-        Dw_new = Dw_l(w_new)
-        amax = lambda x: jnp.max(jnp.abs(x), axis=(0, 1))   # -> (B,)
+        Dw_new = Dw(w_new)
+        amax = lambda x: jnp.max(jnp.abs(x), axis=(1, 2))   # -> (B,)
         r_prim = amax(wp_((Dw_new - z_new) * mask))
         if settings.exact_dual:
             # Same OSQP 3.4 exact dual residual as in solve() (see the
-            # derivation there), on lanes tiles.
+            # derivation there).
             dw = w - w_t
             zt_term = rho_vec * ((alpha - 1.0) * (z_t - z) + (z - z_new))
-            dvec = (1.0 - alpha) * Hw_l(dw) + sigma * dw + DTy_l(zt_term)
+            dvec = (1.0 - alpha) * Hw(dw) + sigma * dw + DTy(zt_term)
             r_dual = amax(wd_(dvec))
             dual_scale = jnp.maximum(
-                amax(wd_(Hw_l(w_new))),
-                jnp.maximum(amax(wd_(DTy_l(y_new))), h_absmax),
+                amax(wd_(Hw(w_new))),
+                jnp.maximum(amax(wd_(DTy(y_new))), h_absmax),
             )
         else:
-            r_dual = rho * amax(wd_(DTy_l((z_new - z) * mask)))
-            dual_scale = amax(wd_(DTy_l(y_new)))
-
+            r_dual = rho * amax(wd_(DTy((z_new - z) * mask)))
+            dual_scale = amax(wd_(DTy(y_new)))
         prim_scale = jnp.maximum(amax(wp_(Dw_new * mask)),
                                  amax(wp_(z_new)))
         conv = (r_prim <= settings.eps_abs + settings.eps_rel * prim_scale) \
@@ -1172,10 +600,10 @@ def solve_fused(
         k_next = k_it + 1
         iter_conv = jnp.where(conv & (iter_conv < 0), k_next, iter_conv)
 
-        # Per-instance adaptive rho on the cadence (no refactor needed).
+        # Per-instance adaptive rho on the cadence (OSQP 5.2, relative
+        # imbalance); uniform_rho adapts one rho on the batch's worst.
         if settings.adaptive_rho:
             tiny = jnp.asarray(1e-12, dt)
-            # OSQP 5.2: relative-residual imbalance.
             rp_rel = r_prim / jnp.maximum(prim_scale, tiny)
             rd_rel = r_dual / jnp.maximum(dual_scale, tiny)
             if settings.uniform_rho:
@@ -1185,15 +613,21 @@ def solve_fused(
                 jnp.maximum(rp_rel, tiny) / jnp.maximum(rd_rel, tiny)
             )
             upd = ((ratio > 5.0) | (ratio < 0.2)) & (k_next % interval == 0)
-            rho = jnp.where(
-                upd,
-                jnp.clip(rho * ratio, settings.rho_min, settings.rho_max),
-                rho,
-            )
+            target = jnp.clip(rho * ratio, settings.rho_min, settings.rho_max)
+            if ladder:
+                target = _snap(target, ladder)
+            rho = jnp.where(upd, target, rho)
 
         stats = (k_next, iter_conv, r_prim, r_dual, conv)
         return (w_new, z_new, y_new, rho, stats, *fac), None
 
+    if state is None:
+        state = ADMMState(
+            w=jnp.zeros((Bb,) + problem.h.shape[-2:], dt),
+            z=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
+            y=jnp.zeros((Bb,) + problem.e_lb.shape[-2:], dt),
+            rho=jnp.full((Bb,), settings.rho, dt),
+        )
     stats0 = (
         jnp.asarray(0, jnp.int32),
         jnp.full((Bb,), -1, jnp.int32),
@@ -1203,103 +637,36 @@ def solve_fused(
     )
     rho0 = jnp.broadcast_to(jnp.asarray(state.rho, dt), (Bb,))
     if ladder:
-        # Snap warm/initial rho onto the rung grid (per-instance).
-        rungs_l = jnp.asarray(ladder, dt)
-        idx0 = jnp.argmin(
-            jnp.abs(jnp.log(rungs_l)[:, None]
-                    - jnp.log(jnp.maximum(rho0, 1e-30))[None, :]),
-            axis=0)
-        rho0 = rungs_l[idx0]
-    elif shared_mode and settings.cached_factors:
-        # The shared factor build reads rho[0] and the max-based
-        # adaptation only PRESERVES uniformity — a warm-start state
-        # carrying per-instance rho (e.g. from a prior per-instance
-        # run) would yield factors valid only for lane 0.  Collapse to
-        # the batch max (the conservative OSQP choice) so the uniform
-        # invariant holds from iteration 0.
+        rho0 = _snap(jnp.maximum(rho0, 1e-30), ladder)
+    elif shared_fac and settings.cached_factors:
+        # The shared factor build reads lane 0 and the max-based rule
+        # only PRESERVES uniformity — collapse a per-instance warm rho
+        # to the batch max (the conservative OSQP choice).
         rho0 = jnp.broadcast_to(jnp.max(rho0), (Bb,))
-    # The fused-kernel bodies carry the terminal row as separate leaves
-    # (see _terminal_tail): the per-iteration w[:-1] slices and
-    # terminal concatenations cost ~6 full-trajectory HBM copies.  The
-    # split body additionally packs the stage iterates into ONE
-    # (N, nz+2nc, B) array (one DMA window per kernel per grid step).
-    w_l, z_l, y_l = l3(state.w), l3(state.z), l3(state.y)
-    if split_mode:
-        wzy0 = jnp.concatenate([w_l[:-1], z_l[:-1], y_l[:-1]], axis=1)
-        if ladder:
-            carry0 = (wzy0, w_l[-1], z_l[-1], y_l[-1], rho0, stats0)
-            stats_idx = 5
-        else:
-            hf0 = _xla_fold(wzy0, rho0)
-            carry0 = (wzy0, hf0, w_l[-1], z_l[-1], y_l[-1],
-                      rho0, stats0)
-            stats_idx = 6
-    elif single_kernel:
-        carry0 = (w_l[:-1], z_l[:-1], y_l[:-1],
-                  w_l[-1], z_l[-1], y_l[-1], rho0, stats0)
-        stats_idx = 7
-    else:
-        carry0 = (w_l, z_l, y_l, rho0, stats0)
-        stats_idx = 4
-    if settings.cached_factors and not ladder:
+    carry0 = (state.w, state.z, state.y, rho0, stats0)
+    if settings.cached_factors:
         if state.factors is not None:
-            # Split mode: packed (AK, BL, MK, Pc) streams (Pc
-            # per-scenario, compute dtype); otherwise (K, M, P, L) —
-            # opaque, same-mode round trips only (the documented
-            # ADMMState.factors contract).
-            s0, s1, s2, s3, r0 = state.factors
-            if split_mode:
-                fac0 = (s0.astype(fac_dt), s1.astype(fac_dt),
-                        s2.astype(fac_dt), s3, r0)
-            else:
-                fac0 = (s0.astype(fac_dt), s1.astype(fac_dt),
-                        s2.astype(fac_dt), s3.astype(fac_dt), r0)
+            # Opaque, same-problem round trips only (ADMMState doc).
+            K0, P0, Hi0, r0 = state.factors
+            fac0 = (K0.astype(dt), P0.astype(dt), Hi0.astype(dt), r0)
         else:
-            Wf = W if shared_mode else Bb   # factor lane width
-            zdt = fac_dt if shared_mode else dt
-            zf = lambda *dims: jnp.zeros(dims + (Wf,), zdt)
-            if split_mode:
-                fac0 = (zf(N, nz, nx), zf(N, nz, nu), zf(N, nz, nx),
-                        jnp.zeros((N, nx, Bb), dt),
-                        jnp.full((Bb,), -1.0, dt))
-            else:
-                fac0 = (zf(N, nu, nx), zf(N, nx, nx), zf(N, nx, nx),
-                        zf(N, nu, nu), jnp.full((Bb,), -1.0, dt))
+            Wf = 1 if shared_fac else Bb
+            zf = lambda *dims: jnp.zeros((Wf,) + dims, dt)
+            fac0 = (zf(N, nu, nx), zf(N, nx, nx), zf(N, nu, nu),
+                    jnp.full((Bb,), -1.0, dt))
         carry0 = carry0 + (fac0,)
-    body = iteration_1k if single_kernel else (
-        iteration_split if split_mode else iteration)
+
     if settings.early_exit:
         def _cond(carry):
-            k_it = carry[stats_idx][0]
-            conv = carry[stats_idx][4]
-            return (k_it < settings.max_iter) & ~jnp.all(conv)
+            stats = carry[4]
+            return (stats[0] < settings.max_iter) & ~jnp.all(stats[4])
 
-        out_carry = jax.lax.while_loop(
-            _cond, lambda c: body(c, None)[0], carry0
-        )
+        out = jax.lax.while_loop(_cond, lambda c: iteration(c, None)[0],
+                                 carry0)
     else:
-        out_carry, _ = jax.lax.scan(
-            body, carry0, None, length=settings.max_iter,
-        )
-    if split_mode:
-        if ladder:
-            (wzy, wN, zN, yN, rho, stats, *fac_out) = out_carry
-        else:
-            (wzy, _hf, wN, zN, yN, rho, stats, *fac_out) = out_carry
-        w = jnp.concatenate([wzy[:, :nz], wN[None]], axis=0)
-        z = jnp.concatenate([wzy[:, nz:nz + nc], zN[None]], axis=0)
-        y = jnp.concatenate([wzy[:, nz + nc:], yN[None]], axis=0)
-    elif single_kernel:
-        (w_s, z_s, y_s, wN, zN, yN, rho, stats, *fac_out) = out_carry
-        w = jnp.concatenate([w_s, wN[None]], axis=0)
-        z = jnp.concatenate([z_s, zN[None]], axis=0)
-        y = jnp.concatenate([y_s, yN[None]], axis=0)
-    else:
-        (w, z, y, rho, stats, *fac_out) = out_carry
-    # Back to the batch-leading API layout (once).
-    w_b = jnp.moveaxis(w, -1, 0)
-    z_b = jnp.moveaxis(z, -1, 0)
-    y_b = jnp.moveaxis(y, -1, 0)
+        out, _ = jax.lax.scan(iteration, carry0, None,
+                              length=settings.max_iter)
+    w_b, z_b, y_b, rho, stats, *fac_out = out
     k_it, iter_conv, r_prim, r_dual, conv = stats
     info = ADMMInfo(
         iterations=jnp.full((Bb,), k_it), r_prim=r_prim, r_dual=r_dual,
@@ -1312,6 +679,14 @@ def solve_fused(
     ), info
 
 
+def _snap(rho, ladder):
+    """Snap each rho to the nearest rung of ``ladder`` in log space."""
+    rungs = jnp.asarray(ladder, rho.dtype)
+    idx = jnp.argmin(jnp.abs(jnp.log(rungs)[:, None]
+                             - jnp.log(rho)[None, :]), axis=0)
+    return rungs[idx]
+
+
 def suggest_rho_ladder(
     problem,
     x0,
@@ -1322,7 +697,6 @@ def suggest_rho_ladder(
     probe_batch: int = 128,
     probe_iters: Optional[int] = None,
     soc_shift=None,
-    interpret: bool = False,
 ):
     """Pick ``rho_ladder`` rungs from the problem's own adaptive-rho
     footprint.
@@ -1336,18 +710,14 @@ def suggest_rho_ladder(
     where the OSQP sec-5.2 imbalance rule actually sends instances for
     THIS problem / scenario distribution, so snapping to rungs loses
     little vs free per-instance adaptation.  The probe is a host-side
-    one-off (serving setup time, not the hot loop).  ``probe_batch``
-    defaults to 128 — the hardware lane floor for the Pallas paths the
-    probe runs through.
+    one-off (serving setup time, not the hot loop) of ``probe_batch``
+    instances.
 
     Shared-mode problems (``problem.A.ndim == 3``; the ownership shape
     of the reference's model, lqr_model.hpp:66-89) are replicated over
     the probe subsample; batched problems are subsampled directly.
     Returns a sorted tuple of 1..``rungs`` distinct values — rungs
-    closer than 10% in log space are merged, since a ladder with
-    redundant rungs only widens the pinned factor streams the split
-    kernels cache per rung (lqr_solver.hpp:65-70's
-    without_factorization fast path is what each rung caches).
+    closer than 10% in log space are merged.
     """
     import numpy as np
 
@@ -1373,7 +743,7 @@ def suggest_rho_ladder(
         max_iter=int(probe_iters if probe_iters is not None
                      else settings.max_iter))
     _, st, _ = solve_fused(pp, x0p, tuple(cones), ps,
-                           soc_shift=soc_shift, interpret=interpret)
+                           soc_shift=soc_shift)
     rho = np.asarray(jax.device_get(st.rho), np.float64).ravel()
     rho = rho[np.isfinite(rho) & (rho > 0.0)]
     if rho.size == 0:  # degenerate probe: fall back to the start rho

@@ -1,6 +1,6 @@
 """Associative-scan Riccati solver — log-depth backward AND forward.
 
-The TPU-native flagship path: no reference counterpart (the reference's
+The log-depth path: no reference counterpart (the reference's
 parallelism stops at coarse OpenMP segments, lqr_solver_parallel.hpp);
 see ops/riccati_assoc.py for the algorithm.  Drop-in API-compatible
 with solvers.sequential: same RiccatiFactors cache, same ws layout,

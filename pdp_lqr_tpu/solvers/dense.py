@@ -1,4 +1,4 @@
-"""Dense P-form Riccati solver — the TPU throughput backend.
+"""Dense P-form Riccati solver — the XLA throughput backend.
 
 Same math as solvers.sequential (reference lqr_solver.hpp) carried in
 P-form with unrolled small-matrix solves and a solve-free rollout; see

@@ -3,11 +3,11 @@
 The reference's steady-state fast path re-solves with cached factors
 every ADMM iteration (``backward_without_factorization``,
 lqr_solver.hpp:65-70): with (H~, rho) fixed, only *vector* work runs.
-On a TPU that vector sweep is still a length-N sequential scan of tiny
-ops — latency-bound at small batch, which is exactly the regime of a
+On an accelerator that vector sweep is still a length-N sequential scan
+of tiny ops — latency-bound at small batch, which is exactly the regime of a
 1 kHz MPC replan loop (B = 1).
 
-TPU-native re-design: with the factorization fixed, the inner KKT
+Re-design: with the factorization fixed, the inner KKT
 solve is a *fixed affine map* of the iteration-varying folded cost
 vector hf and the initial state:
 
@@ -15,8 +15,8 @@ vector hf and the initial state:
 
 so we materialize (T, J, r) ONCE per factorization by pushing basis
 vectors through the cached-factor vector solve (a single batched scan),
-and every subsequent ADMM iteration is ONE dense (M, M) matvec on the
-MXU (M = (N+1) nz, e.g. 1040 for the quadrotor at N = 64) plus
+and every subsequent ADMM iteration is ONE dense (M, M) matvec
+(M = (N+1) nz, e.g. 1040 for the quadrotor at N = 64) plus
 elementwise projection/dual work — no per-stage scan, no tiny-matrix
 ops, near-zero serial depth.  The replan loop itself is a
 ``lax.while_loop`` with convergence-based early exit (the batch-SIMD
@@ -526,7 +526,7 @@ def solve_batch(
     state: Optional[ADMMState] = None,
     soc_shift=None,
 ):
-    """Operator-mode batched conic ADMM — MXU matmuls, no scans.
+    """Operator-mode batched conic ADMM — dense matmuls, no scans.
 
     ``problem`` is BATCHED (leading axis B); every instance must share
     the operator's (A, B, H, D) and rho — c, x0, bounds, and warm
@@ -536,9 +536,10 @@ def solve_batch(
     iterations (SIMD batch semantics, like admm.solve_fused) with
     per-instance convergence tracked in the returned info.
 
-    O(M^2) per solve vs the lane kernels' O(N): the win is for short
-    horizons (N <~ 128, where the matvec rides the MXU and the scan's
-    serial depth dominates); at N = 512 the lane kernels win.
+    O(M^2) per solve vs the Riccati sweeps' O(N): the win is for short
+    horizons, where the scan's serial depth dominates; at long
+    horizons the sweeps win (where the crossover lies on the GPU is
+    not measured).
 
     Returns (ws (B, N+1, nz), ADMMState (batched), ADMMInfo (batched)).
     """

@@ -8,7 +8,7 @@ NaNs (utils.profiling.failure_mask) and this module RECOVERS them:
 one fixed-shape re-solve of the whole batch with a per-instance
 regularization bump folded into H, merged back only on failed lanes.
 
-TPU shape of the policy: no host sync, no data-dependent shapes — the
+Shape of the policy: no host sync, no data-dependent shapes — the
 retry always runs the full batch (a failed lane costs one extra solve
 of everything, amortized to ~0 when failures are rare), and healthy
 lanes take their ORIGINAL results bit-identically via jnp.where.
@@ -43,7 +43,7 @@ def solve_with_recovery(solve_batched_fn, problem, it, x0, sigma,
     """Run a batched inner solve with masked bump-and-retry.
 
     ``solve_batched_fn(problem, it, x0, sigma) -> ws (B, N+1, nz)`` is
-    any batched backend entry (sequential/dense/pallas solve_lanes ...).
+    any batched backend entry (sequential/dense/pallas solve_batched ...).
     On instances whose output is non-finite, ``sigma_bump`` (escalated
     x10 per retry) is folded into that instance's H diagonal — the
     per-instance equivalent of the classic regularization bump the

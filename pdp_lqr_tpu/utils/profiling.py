@@ -4,7 +4,7 @@ Reference status: tracing is vestigial there — a fully commented-out
 Tracy client (CMakeLists.txt:24-32,67; lqr_solver_parallel.hpp:10,143)
 and example-level wall-clock prints (lqr_example.cpp:178-185).  Here
 the same needs are served by jax.profiler traces plus a small timing
-harness and a roofline model for the fused kernels.
+harness and a roofline model for the batched sweeps.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/pdp_lqr_trace"):
+def trace(log_dir: str):
     """Capture a jax.profiler trace viewable in TensorBoard/Perfetto."""
     jax.profiler.start_trace(log_dir)
     try:
@@ -58,20 +58,35 @@ def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 1) -> Timing:
     return Timing(compile_s=compile_s, p50_ms=p50, mean_ms=mean, iters=iters)
 
 
+# Published peaks per device, keyed by jax's ``device_kind``.  Dense
+# rates without sparsity; float32 outside the tensor cores, since the
+# solvers pin "highest" matmul precision (no TF32).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "f32_flops_per_s": 67e12,
+        "source": "NVIDIA H100 SXM data sheet (700 W)",
+    },
+}
+
+
+def peaks(device_kind: str) -> dict:
+    """Peak rates of ``device_kind``; an unknown device is an error."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[device_kind]
+
+
 def riccati_roofline(N: int, nx: int, nu: int, nc: int, B: int,
-                     dtype_bytes: int = 4,
-                     hbm_gbps: float = 819.0,
-                     vpu_flops: float = 0.9e12 * 8,
-                     closed_loop: bool = False):
-    """Analytic bounds for the fused backward kernel on one chip.
+                     device_kind: str, dtype_bytes: int = 4):
+    """Analytic bounds for the factorizing backward sweep on one device.
 
     Returns dict with bytes/solve, flops/solve, and the memory/compute
-    time bounds — used to judge how far measured numbers sit from
-    speed-of-light (BASELINE.md asks for this explicitly).
-
-    ``closed_loop`` models the legacy (M, v)-emitting sweep; the
-    headline path runs emit_closed_loop=False (K, d only).
+    time bounds against the published peaks of ``device_kind`` — how
+    far a measured sweep time sits from speed-of-light.
     """
+    pk = peaks(device_kind)
     nz = nx + nu
     words_per_stage = (
         nx * nx + nx * nu + nx          # A, B, c
@@ -79,14 +94,12 @@ def riccati_roofline(N: int, nx: int, nu: int, nc: int, B: int,
         + nc * nz + 2 * nc              # D, rho, rg
     )
     out_words = nu * nx + nu             # K, d
-    if closed_loop:
-        out_words += nx * nx + nx        # M, v
     bytes_total = (words_per_stage + out_words) * N * B * dtype_bytes
 
     fold = nc * nz * (nz + 1)
-    # Symmetric products (P+, Huu) are computed triangle-only and
-    # mirrored (ops/pallas_riccati._mtm_sym/_low_rows), so the model
-    # counts tri(nx) entries for P+ and tri(nu) rows for Huu.
+    # Symmetric products (P+, Huu) are computed triangle-only
+    # (ops/pallas_riccati), so the model counts tri(nx) entries for P+
+    # and tri(nu) rows for Huu.
     tri_x = nx * (nx + 1) // 2
     tri_u = nu * (nu + 1) // 2
     matmuls = (
@@ -95,14 +108,12 @@ def riccati_roofline(N: int, nx: int, nu: int, nc: int, B: int,
         + tri_x * (nx + nu)             # P+ upper: A^T PA + G^T K
         + tri_u * nx                    # Huu lower: R + B^T PB
     )
-    if closed_loop:
-        matmuls += nx * nu * nx          # M = A + B K
     chol = nu ** 3 // 3 + (nx + 1) * nu * nu
     vecs = 6 * nx * nx
     flops_total = 2 * (fold + matmuls + chol + vecs) * N * B
 
-    t_mem = bytes_total / (hbm_gbps * 1e9)
-    t_compute = flops_total / vpu_flops
+    t_mem = bytes_total / pk["hbm_bytes_per_s"]
+    t_compute = flops_total / pk["f32_flops_per_s"]
     return {
         "bytes_per_batched_solve": bytes_total,
         "flops_per_batched_solve": flops_total,

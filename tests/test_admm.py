@@ -257,7 +257,7 @@ def test_warm_start_converges_fast():
 
 
 def test_admm_fused_matches_per_instance():
-    """Batch-fused Pallas ADMM == vmapped per-instance ADMM (interpret).
+    """Batch-fused ADMM == vmapped per-instance ADMM.
 
     The fused path adapts rho per instance without refactor cadence
     mechanics, so compare against per-instance runs with adaptive rho
@@ -274,7 +274,7 @@ def test_admm_fused_matches_per_instance():
     )
     x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
     st = _settings(max_iter=150, adaptive_rho=False)
-    ws_f, _, info_f = admm.solve_fused(bp, x0s, (), st, interpret=True)
+    ws_f, _, info_f = admm.solve_fused(bp, x0s, (), st)
     for i in range(B):
         pi = jax.tree.map(lambda x: x[i], bp)
         ws_i, _, _ = admm.solve(pi, x0s[i], (), st)
@@ -288,7 +288,7 @@ def test_admm_fused_unconstrained():
     B = 2
     bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), problem)
     x0s = jnp.zeros((B, 12))
-    ws_f, _, info = admm.solve_fused(bp, x0s, (), _settings(), interpret=True)
+    ws_f, _, info = admm.solve_fused(bp, x0s, (), _settings())
     from pdp_lqr_tpu.solvers import sequential
     from pdp_lqr_tpu import init_iterates
 
@@ -326,7 +326,7 @@ def test_admm_fused_cones_match_per_instance():
     x0s = jnp.asarray(rng.normal(size=(B, nx)) * 0.3)
     st = _settings(max_iter=200, adaptive_rho=False)
     ws_f, _, info_f = admm.solve_fused(
-        bp, x0s, cones, st, soc_shift=shift_j, interpret=True
+        bp, x0s, cones, st, soc_shift=shift_j
     )
     for i in range(B):
         ws_i, _, _ = admm.solve(

@@ -40,9 +40,8 @@ def test_sharded_admm_matches_fused(time_axis):
     mesh = mesh_lib.make_mesh(batch=8 // time_axis, time=time_axis)
     st = _settings()
     ws_s, state_s, info_s = admm_sharded.solve(
-        mesh, bp, x0, (), st, interpret=True)
-    ws_f, state_f, info_f = admm.solve_fused(bp, x0, (), st, interpret=True,
-                 single_kernel=False)
+        mesh, bp, x0, (), st)
+    ws_f, state_f, info_f = admm.solve_fused(bp, x0, (), st)
     np.testing.assert_allclose(
         np.asarray(ws_s), np.asarray(ws_f), atol=2e-4)
     # Per-instance adaptive rho follows the same trajectory.
@@ -63,9 +62,9 @@ def test_sharded_admm_soc_cone():
     mesh = mesh_lib.make_mesh(batch=2, time=4)
     st = _settings(max_iter=40)
     ws_s, _, info_s = admm_sharded.solve(
-        mesh, bp, x0, cones, st, interpret=True)
+        mesh, bp, x0, cones, st)
     ws_f, _, info_f = admm.solve_fused(
-        bp, x0, cones, st, interpret=True, single_kernel=False)
+        bp, x0, cones, st)
     np.testing.assert_allclose(
         np.asarray(ws_s), np.asarray(ws_f), atol=2e-4)
 
@@ -81,10 +80,10 @@ def test_sharded_admm_cached_factors_matches_refactor():
     mesh = mesh_lib.make_mesh(batch=2, time=4)
     st = _settings(max_iter=12, rho_update_interval=4)
     ws_r, state_r, info_r = admm_sharded.solve(
-        mesh, bp, x0, (), st, interpret=True)
+        mesh, bp, x0, (), st)
     ws_c, state_c, info_c = admm_sharded.solve(
         mesh, bp, x0, (),
-        dataclasses.replace(st, cached_factors=True), interpret=True)
+        dataclasses.replace(st, cached_factors=True))
     np.testing.assert_allclose(
         np.asarray(ws_c), np.asarray(ws_r), atol=1e-9)
     np.testing.assert_allclose(
@@ -104,14 +103,12 @@ def test_sharded_admm_early_exit_matches_fixed():
     st = _settings(max_iter=30, rho_update_interval=4,
                    eps_abs=1e-3, eps_rel=1e-2)
     ws_e, _, info_e = admm_sharded.solve(
-        mesh, bp, x0, (), dataclasses.replace(st, early_exit=True),
-        interpret=True)
+        mesh, bp, x0, (), dataclasses.replace(st, early_exit=True))
     k_exit = int(info_e.iterations[0])
     assert k_exit < 30
     assert bool(jnp.all(info_e.converged))
     ws_t, _, info_t = admm_sharded.solve(
-        mesh, bp, x0, (), dataclasses.replace(st, max_iter=k_exit),
-        interpret=True)
+        mesh, bp, x0, (), dataclasses.replace(st, max_iter=k_exit))
     np.testing.assert_allclose(
         np.asarray(ws_e), np.asarray(ws_t), atol=1e-12)
 
@@ -124,8 +121,7 @@ def test_sharded_admm_cached_early_exit():
     st = _settings(max_iter=30, rho_update_interval=5,
                    eps_abs=1e-3, eps_rel=1e-2, cached_factors=True,
                    early_exit=True)
-    ws, _, info = admm_sharded.solve(mesh, bp, x0, (), st,
-                                     interpret=True)
+    ws, _, info = admm_sharded.solve(mesh, bp, x0, (), st)
     assert bool(jnp.all(jnp.isfinite(ws)))
     assert bool(jnp.all(info.converged))
     assert int(info.iterations[0]) <= 30
@@ -136,15 +132,13 @@ def test_sharded_admm_warm_start():
     bp, x0 = _batch(problem, B=4)
     mesh = mesh_lib.make_mesh(batch=2, time=4)
     st = _settings()
-    ws1, state, _ = admm_sharded.solve(mesh, bp, x0, (), st,
-                                       interpret=True)
+    ws1, state, _ = admm_sharded.solve(mesh, bp, x0, (), st)
     st2 = _settings(max_iter=5, adaptive_rho=False)
     ws2, _, info2 = admm_sharded.solve(
-        mesh, bp, x0, (), st2, state=state, interpret=True)
+        mesh, bp, x0, (), st2, state=state)
     # Warm continuation matches the single-device fused loop from the
     # same state (plumbing parity for w/z/y/per-instance rho).
     ws2_f, _, _ = admm.solve_fused(
-        bp, x0, (), st2, state=state, interpret=True,
-        single_kernel=False)
+        bp, x0, (), st2, state=state)
     np.testing.assert_allclose(
         np.asarray(ws2), np.asarray(ws2_f), atol=2e-4)

@@ -1,7 +1,7 @@
 """Shared-stage (broadcast) conic ADMM: solve_fused on one model.
 
-Parity is pinned against the replicated solve_fused paths in interpret
-mode; the on-device lowering is covered by bench.py --check.
+Parity is pinned against the replicated solve_fused path; the GPU
+sweep kernels run the shared path in chip_smoke.py.
 """
 
 import dataclasses
@@ -9,7 +9,6 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from pdp_lqr_tpu.models import quadrotor
 from pdp_lqr_tpu.solvers import admm
@@ -38,9 +37,9 @@ SETTINGS = admm.ADMMSettings(max_iter=12, rho=0.1, adaptive_rho=True,
 def test_shared_matches_replicated_box():
     sp, bp, x0, _ = _scenarios(B=3)
     ws_sh, st_sh, info_sh = admm.solve_fused(
-        sp, x0, (), SETTINGS, interpret=True, single_kernel=True)
+        sp, x0, (), SETTINGS)
     ws_rp, st_rp, info_rp = admm.solve_fused(
-        bp, x0, (), SETTINGS, interpret=True, single_kernel=True)
+        bp, x0, (), SETTINGS)
     np.testing.assert_allclose(
         np.asarray(ws_sh), np.asarray(ws_rp), atol=1e-9)
     np.testing.assert_allclose(
@@ -55,11 +54,9 @@ def test_shared_matches_replicated_cones_shift():
     nc = sp.nc
     shift = jnp.zeros((sp.N + 1, nc)).at[:, 16].set(8.0)
     ws_sh, _, _ = admm.solve_fused(
-        sp, x0, cones, SETTINGS, soc_shift=shift, interpret=True,
-        single_kernel=True)
+        sp, x0, cones, SETTINGS, soc_shift=shift)
     ws_rp, _, _ = admm.solve_fused(
-        bp, x0, cones, SETTINGS, soc_shift=shift, interpret=True,
-        single_kernel=True)
+        bp, x0, cones, SETTINGS, soc_shift=shift)
     np.testing.assert_allclose(
         np.asarray(ws_sh), np.asarray(ws_rp), atol=1e-9)
 
@@ -67,10 +64,9 @@ def test_shared_matches_replicated_cones_shift():
 def test_shared_warm_start_state():
     sp, _, x0, _ = _scenarios(B=2)
     ws1, st1, _ = admm.solve_fused(
-        sp, x0, (), SETTINGS, interpret=True, single_kernel=True)
+        sp, x0, (), SETTINGS)
     ws2, _, info2 = admm.solve_fused(
-        sp, x0, (), SETTINGS, state=st1, interpret=True,
-        single_kernel=True)
+        sp, x0, (), SETTINGS, state=st1)
     # Warm start from the converged-ish state must not blow up and
     # should keep residuals at least as small.
     assert bool(jnp.all(jnp.isfinite(ws2)))
@@ -83,38 +79,23 @@ def test_shared_unconstrained_model():
     B = 2
     x0 = jnp.asarray(rng.normal(size=(B, problem.nx)) * 0.05,
                      problem.c.dtype)
-    ws, st, info = admm.solve_fused(problem, x0, (), SETTINGS,
-                                    interpret=True)
+    ws, st, info = admm.solve_fused(problem, x0, (), SETTINGS)
     assert ws.shape == (B, problem.N + 1, problem.nz)
     assert bool(jnp.all(jnp.isfinite(ws)))
 
 
-def test_shared_rejects_cached_and_two_kernel():
-    sp, _, x0, _ = _scenarios(B=2)
-    with pytest.raises(ValueError, match="uniform_rho"):
-        admm.solve_fused(
-            sp, x0, (),
-            dataclasses.replace(SETTINGS, cached_factors=True),
-            interpret=True, single_kernel=True)
-    # Shared two-kernel mode is the SPLIT iteration (r5): valid only
-    # with cached factors (pinned (P, L, K) streams).
-    with pytest.raises(ValueError, match="cached_factors"):
-        admm.solve_fused(sp, x0, (), SETTINGS, interpret=True,
-                         single_kernel=False)
-
-
 def test_shared_cached_uniform_rho_matches_uncached():
     """Shared cached factors (batch-uniform rho) == the shared
-    refactor-every-iteration path: the W-wide factor build + pinned
-    (P, L, K) streams change nothing numerically while rho holds, and
+    refactor-every-iteration path: the one shared factor build
+    changes nothing numerically while rho holds, and
     the uniform-rho rule moves rho identically in both."""
     sp, _, x0, _ = _scenarios(B=3)
     st_u = dataclasses.replace(SETTINGS, uniform_rho=True)
     ws_un, state_un, info_un = admm.solve_fused(
-        sp, x0, (), st_u, interpret=True, single_kernel=True)
+        sp, x0, (), st_u)
     st_c = dataclasses.replace(st_u, cached_factors=True)
     ws_c, state_c, info_c = admm.solve_fused(
-        sp, x0, (), st_c, interpret=True, single_kernel=True)
+        sp, x0, (), st_c)
     np.testing.assert_allclose(
         np.asarray(ws_c), np.asarray(ws_un), atol=1e-9)
     np.testing.assert_allclose(
@@ -130,6 +111,6 @@ def test_uniform_rho_replicated_consistency():
     sp, bp, x0, _ = _scenarios(B=3)
     st_u = dataclasses.replace(SETTINGS, uniform_rho=True)
     ws, state, info = admm.solve_fused(
-        bp, x0, (), st_u, interpret=True, single_kernel=True)
+        bp, x0, (), st_u)
     assert bool(jnp.all(jnp.isfinite(ws)))
     assert float(jnp.max(jnp.abs(state.rho - state.rho[0]))) == 0.0

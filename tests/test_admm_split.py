@@ -1,11 +1,10 @@
-"""Split (two-kernel) shared ADMM iteration + interleaved sweeps.
+"""Shared-model ADMM with shared factors, and the rho ladder.
 
-The split path (solvers/admm.solve_fused(single_kernel=False) on an
-UNBATCHED problem) runs each iteration as the chunk-interleaved
-(backward-vector, forward+tail) pallas pair of ops/pallas_admm with
-pinned model/factor streams — the long-horizon shared serving path.
-Parity vs the replicated two-kernel loop (independent math path) on
-identical iterations.
+solvers/admm.solve_fused on an UNBATCHED problem with cached_factors
+and uniform_rho keeps ONE copy of the per-stage factors for the whole
+batch (the long-horizon shared serving path); rho_ladder snaps each
+instance's rho to a rung.  Parity vs the replicated per-instance loop
+on identical iterations.
 """
 
 import dataclasses
@@ -38,11 +37,9 @@ def test_split_matches_replicated_two_kernel():
     st_ref = dataclasses.replace(st, cached_factors=False,
                                  uniform_rho=False)
     ws_ref, _, info_ref = admm.solve_fused(
-        bp, x0, cones, st_ref, soc_shift=shift, interpret=True,
-        single_kernel=False)
+        bp, x0, cones, st_ref, soc_shift=shift)
     ws_sp, _, info_sp = admm.solve_fused(
-        p, x0, cones, st, soc_shift=shift, interpret=True,
-        single_kernel=False)
+        p, x0, cones, st, soc_shift=shift)
     np.testing.assert_allclose(np.asarray(ws_sp), np.asarray(ws_ref),
                                atol=1e-9)
     np.testing.assert_allclose(np.asarray(info_sp.r_prim),
@@ -56,22 +53,17 @@ def test_split_adaptive_uniform_rho_matches_single_kernel():
     st = admm.ADMMSettings(max_iter=8, rho=0.1, adaptive_rho=True,
                            rho_update_interval=3,
                            cached_factors=True, uniform_rho=True)
-    ws_1k, s1, _ = admm.solve_fused(p, x0, cones, st, soc_shift=shift,
-                                    interpret=True, single_kernel=True)
-    ws_sp, s2, _ = admm.solve_fused(p, x0, cones, st, soc_shift=shift,
-                                    interpret=True, single_kernel=False)
+    # Shared factors vs the replicated batch refactoring every
+    # iteration under the same uniform-rho rule.
+    B = x0.shape[0]
+    bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), p)
+    st_ref = dataclasses.replace(st, cached_factors=False)
+    ws_1k, s1, _ = admm.solve_fused(bp, x0, cones, st_ref, soc_shift=shift)
+    ws_sp, s2, _ = admm.solve_fused(p, x0, cones, st, soc_shift=shift)
     np.testing.assert_allclose(np.asarray(ws_sp), np.asarray(ws_1k),
                                atol=1e-9)
     np.testing.assert_allclose(np.asarray(s2.rho), np.asarray(s1.rho),
                                rtol=1e-12)
-
-
-def test_split_requires_cached_factors():
-    p, cones, x0, shift = _setup()
-    st = admm.ADMMSettings(max_iter=4, cached_factors=False)
-    with pytest.raises(ValueError, match="cached_factors"):
-        admm.solve_fused(p, x0, cones, st, soc_shift=shift,
-                         interpret=True, single_kernel=False)
 
 
 def test_split_early_exit_and_warm_start():
@@ -80,14 +72,11 @@ def test_split_early_exit_and_warm_start():
                            rho_update_interval=25, uniform_rho=True,
                            cached_factors=True,
                            early_exit=True, eps_abs=1e-4, eps_rel=1e-4)
-    ws, state, info = admm.solve_fused(p, x0, cones, st, soc_shift=shift,
-                                       interpret=True,
-                                       single_kernel=False)
+    ws, state, info = admm.solve_fused(p, x0, cones, st, soc_shift=shift)
     assert bool(jnp.all(info.converged))
     # Warm restart (factors carried in state) converges immediately.
     _, _, info2 = admm.solve_fused(p, x0, cones, st, state=state,
-                                   soc_shift=shift, interpret=True,
-                                   single_kernel=False)
+                                   soc_shift=shift)
     assert int(jnp.max(info2.iterations)) <= 3
 
 
@@ -96,11 +85,11 @@ def test_rho_ladder_single_rung_matches_uniform():
     st0 = admm.ADMMSettings(max_iter=8, rho=0.1, adaptive_rho=False)
     ws_l1, _, _ = admm.solve_fused(
         p, x0, cones, dataclasses.replace(st0, rho_ladder=(0.1,)),
-        soc_shift=shift, interpret=True, single_kernel=False)
+        soc_shift=shift)
     ws_u, _, _ = admm.solve_fused(
         p, x0, cones,
         dataclasses.replace(st0, cached_factors=True, uniform_rho=True),
-        soc_shift=shift, interpret=True, single_kernel=False)
+        soc_shift=shift)
     np.testing.assert_allclose(np.asarray(ws_l1), np.asarray(ws_u),
                                atol=1e-12)
 
@@ -122,20 +111,17 @@ def test_rho_ladder_per_instance_matches_replicated():
     st0 = admm.ADMMSettings(max_iter=8, adaptive_rho=False)
     ws_l, st_out, _ = admm.solve_fused(
         p, x0, cones, dataclasses.replace(st0, rho_ladder=rungs),
-        state=state, soc_shift=shift, interpret=True,
-        single_kernel=False)
+        state=state, soc_shift=shift)
     bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), p)
     ws_r, _, _ = admm.solve_fused(bp, x0, cones, st0, state=state,
-                                  soc_shift=shift, interpret=True,
-                                  single_kernel=False)
+                                  soc_shift=shift)
     np.testing.assert_allclose(np.asarray(ws_l), np.asarray(ws_r),
                                atol=1e-9)
     # Adaptive ladder keeps every instance on a rung.
     st_a = dataclasses.replace(st0, rho_ladder=rungs,
                                adaptive_rho=True, rho_update_interval=3)
     _, st_out, _ = admm.solve_fused(p, x0, cones, st_a, state=state,
-                                    soc_shift=shift, interpret=True,
-                                    single_kernel=False)
+                                    soc_shift=shift)
     ro = np.asarray(st_out.rho)
     assert all(any(abs(r - g) < 1e-12 for g in rungs) for r in ro)
 
@@ -146,39 +132,21 @@ def test_rho_ladder_rejects_bad_configs():
         admm.solve_fused(
             p, x0, cones,
             admm.ADMMSettings(rho_ladder=(0.1,), uniform_rho=True),
-            soc_shift=shift, interpret=True, single_kernel=False)
+            soc_shift=shift)
+    # A replicated batch takes a ladder too: rho stays on the rungs.
     B = x0.shape[0]
     bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), p)
-    with pytest.raises(ValueError, match="shared split"):
-        admm.solve_fused(
-            bp, x0, cones, admm.ADMMSettings(rho_ladder=(0.1,)),
-            soc_shift=shift, interpret=True, single_kernel=False)
-
-
-def test_diag_cost_exact_on_diagonal_models():
-    """diag_cost=True streams the H diagonal for the residual terms —
-    bit-identical on the (diagonal-cost) quadrotor; rejected when H
-    has off-diagonal entries and the problem is concrete."""
-    p, cones, x0, shift = _setup()
-    st = admm.ADMMSettings(max_iter=8, rho=0.1, adaptive_rho=False,
-                           cached_factors=True, uniform_rho=True)
-    ws_a, _, ia = admm.solve_fused(p, x0, cones, st, soc_shift=shift,
-                                   interpret=True, single_kernel=False)
-    st_d = dataclasses.replace(st, diag_cost=True)
-    ws_b, _, ib = admm.solve_fused(p, x0, cones, st_d, soc_shift=shift,
-                                   interpret=True, single_kernel=False)
-    np.testing.assert_array_equal(np.asarray(ws_a), np.asarray(ws_b))
-    np.testing.assert_array_equal(np.asarray(ia.r_dual),
-                                  np.asarray(ib.r_dual))
-    pbad = dataclasses.replace(p, H=p.H.at[:, 0, 1].set(0.5))
-    with pytest.raises(ValueError, match="off-diagonal"):
-        admm.solve_fused(pbad, x0, cones, st_d, soc_shift=shift,
-                         interpret=True, single_kernel=False)
+    _, st_out, _ = admm.solve_fused(
+        bp, x0, cones,
+        admm.ADMMSettings(max_iter=6, rho_ladder=(0.05, 0.5),
+                          rho_update_interval=2),
+        soc_shift=shift)
+    assert set(np.round(np.asarray(st_out.rho), 12)) <= {0.05, 0.5}
 
 
 def test_split_centroidal_friction_cones():
-    """Split iteration generality: centroidal dims (nz=30, nc=6,
-    friction cones, no box rows) vs the replicated two-kernel loop."""
+    """Shared-factor generality: centroidal dims (nz=30, nc=6,
+    friction cones, no box rows) vs the replicated loop."""
     from pdp_lqr_tpu.models import centroidal
 
     p, cone_list = centroidal(N=8, dtype=jnp.float64)
@@ -186,42 +154,13 @@ def test_split_centroidal_friction_cones():
     x0 = jnp.asarray(
         np.random.default_rng(1).normal(size=(B, p.nx)) * 0.05)
     st = admm.ADMMSettings(max_iter=6, rho=0.1, adaptive_rho=False,
-                           cached_factors=True, uniform_rho=True,
-                           diag_cost=True)
-    ws_sp, _, _ = admm.solve_fused(p, x0, tuple(cone_list), st,
-                                   interpret=True, single_kernel=False)
+                           cached_factors=True, uniform_rho=True)
+    ws_sp, _, _ = admm.solve_fused(p, x0, tuple(cone_list), st)
     bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), p)
     st_ref = admm.ADMMSettings(max_iter=6, rho=0.1, adaptive_rho=False)
-    ws_ref, _, _ = admm.solve_fused(bp, x0, tuple(cone_list), st_ref,
-                                    interpret=True, single_kernel=False)
+    ws_ref, _, _ = admm.solve_fused(bp, x0, tuple(cone_list), st_ref)
     np.testing.assert_allclose(np.asarray(ws_sp), np.asarray(ws_ref),
                                atol=1e-9)
-
-
-def test_interleaved_vector_sweep_parity():
-    """backward_vectors_lanes(interleave=True) is bit-identical, incl.
-    the shared pinned-stream variant (multi-chunk grid)."""
-    from pdp_lqr_tpu.ops import pallas_riccati as pr
-
-    rng = np.random.default_rng(0)
-    N, nx, nu, B = 2, 3, 2, 1024
-    nz = nx + nu
-    f = lambda *s: jnp.asarray(rng.normal(size=s) * 0.1)
-    A, Bm, c = f(N, nx, nx, B), f(N, nx, nu, B), f(N, nx, B)
-    hf, P, K = f(N, nz, B), f(N, nx, nx, B), f(N, nu, nx, B)
-    Lr = rng.normal(size=(N, nu, nu, B)) * 0.1
-    for i in range(nu):
-        Lr[:, i, i, :] = 1.0 + abs(Lr[:, i, i, :])
-        for j in range(i + 1, nu):
-            Lr[:, i, j, :] = 0.0
-    L = jnp.asarray(Lr)
-    pN = f(nx, B)
-    d0, v0 = pr.backward_vectors_lanes(A, Bm, c, hf, P, K, L, pN,
-                                       interpret=True)
-    d1, v1 = pr.backward_vectors_lanes(A, Bm, c, hf, P, K, L, pN,
-                                       interpret=True, interleave=True)
-    np.testing.assert_array_equal(np.asarray(d0), np.asarray(d1))
-    np.testing.assert_array_equal(np.asarray(v0), np.asarray(v1))
 
 
 def test_suggest_rho_ladder_degenerate_is_start_rho():
@@ -231,7 +170,7 @@ def test_suggest_rho_ladder_degenerate_is_start_rho():
     rungs = admm.suggest_rho_ladder(
         p, x0, cones,
         admm.ADMMSettings(rho=0.1, rho_update_interval=10),
-        rungs=4, probe_iters=2, soc_shift=shift, interpret=True)
+        rungs=4, probe_iters=2, soc_shift=shift)
     assert rungs == (0.1,)
 
 
@@ -240,7 +179,7 @@ def test_suggest_rho_ladder_covers_probe_footprint():
     st = admm.ADMMSettings(rho=0.1, rho_update_interval=3)
     rungs = admm.suggest_rho_ladder(
         p, x0, cones, st, rungs=3, probe_iters=12,
-        soc_shift=shift, interpret=True)
+        soc_shift=shift)
     assert 1 <= len(rungs) <= 3
     assert list(rungs) == sorted(rungs) and all(r > 0 for r in rungs)
     # The rungs are log-quantiles of the probe's per-instance rho:
@@ -251,7 +190,7 @@ def test_suggest_rho_ladder_covers_probe_footprint():
     bp = jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), p)
     _, stp, _ = admm.solve_fused(
         bp, x0, cones, dc.replace(st, max_iter=12),
-        soc_shift=shift, interpret=True)
+        soc_shift=shift)
     lo, hi = np.log(rungs[0]), np.log(rungs[-1])
     span = max(hi - lo, 0.1)
     logs = np.log(np.asarray(stp.rho))
@@ -260,5 +199,5 @@ def test_suggest_rho_ladder_covers_probe_footprint():
     ws, _, _ = admm.solve_fused(
         p, x0, cones,
         dc.replace(st, max_iter=6, rho_ladder=rungs),
-        soc_shift=shift, interpret=True, single_kernel=False)
+        soc_shift=shift)
     assert bool(jnp.all(jnp.isfinite(ws)))

@@ -33,12 +33,12 @@ def test_n1_all_backends():
         ws = np.asarray(fn())
         np.testing.assert_allclose(ws, ws_ref, atol=1e-9, err_msg=name)
 
-    # Pallas (interpret), batched.
+    # Triton sweep (interpret mode), batched.
     B = 2
     bp = jax.tree.map(lambda x: jnp.broadcast_to(x, (B,) + x.shape), problem)
     its = jax.vmap(lambda p: init_iterates(p, rho=0.01))(bp)
-    ws_p = pallas_riccati.solve_lanes(
-        bp, its, jnp.broadcast_to(x0, (B, 3)), SIGMA, interpret=True
+    ws_p = pallas_riccati.solve_batched(
+        bp, its, jnp.broadcast_to(x0, (B, 3)), SIGMA, impl="interpret"
     )
     np.testing.assert_allclose(np.asarray(ws_p[0]), ws_ref, atol=1e-9)
 

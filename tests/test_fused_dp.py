@@ -26,7 +26,7 @@ def test_fused_dp_matches_sequential():
     x0 = jnp.asarray(rng.normal(size=(B, 12)) * 0.1)
 
     m = mesh_lib.make_mesh(batch=4, time=2)
-    ws = fused_dp.solve(m, bp, its, x0, SIGMA, interpret=True)
+    ws = fused_dp.solve(m, bp, its, x0, SIGMA)
     ws_ref, _ = sequential.solve_batched(bp, its, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws), np.asarray(ws_ref), atol=1e-9
@@ -35,7 +35,7 @@ def test_fused_dp_matches_sequential():
 
 def test_solve_fused_dp_single_kernel_matches_local():
     """Full conic ADMM under batch shard_map == single-device run,
-    single-kernel iteration, warm-start state round-trip."""
+    warm-start state round-trip."""
     from pdp_lqr_tpu.solvers import admm
 
     problem, _ = quadrotor(N=6, constrained=True)
@@ -50,10 +50,10 @@ def test_solve_fused_dp_single_kernel_matches_local():
 
     m = mesh_lib.make_mesh(batch=8, time=1)
     ws, state, info = fused_dp.solve_fused_dp(
-        m, bp, x0, (), st, interpret=True, single_kernel=True
+        m, bp, x0, (), st
     )
     ws_ref, state_ref, info_ref = admm.solve_fused(
-        bp, x0, (), st, interpret=True, single_kernel=True
+        bp, x0, (), st
     )
     np.testing.assert_allclose(np.asarray(ws), np.asarray(ws_ref),
                                atol=1e-9)
@@ -65,12 +65,10 @@ def test_solve_fused_dp_single_kernel_matches_local():
 
     # Warm start: sharded second solve from the sharded state.
     ws2, _, _ = fused_dp.solve_fused_dp(
-        m, bp, x0, (), st, state=state, interpret=True,
-        single_kernel=True,
+        m, bp, x0, (), st, state=state,
     )
     ws2_ref, _, _ = admm.solve_fused(
-        bp, x0, (), st, state=state_ref, interpret=True,
-        single_kernel=True,
+        bp, x0, (), st, state=state_ref,
     )
     np.testing.assert_allclose(np.asarray(ws2), np.asarray(ws2_ref),
                                atol=1e-9)

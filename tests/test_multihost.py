@@ -28,7 +28,7 @@ def test_make_pod_mesh_shapes():
 
     m4 = multihost.make_pod_mesh(time=4)
     assert m4.shape == {"batch": 2, "time": 4}
-    # Contiguous time groups (each group stays within one ICI domain).
+    # Contiguous time groups (each group stays within one host).
     arr = np.asarray(m4.devices)
     ids = np.array([[d.id for d in row] for row in arr])
     assert np.array_equal(ids, np.arange(8).reshape(2, 4))

@@ -7,9 +7,9 @@ process 0 hosts it — each with 2 virtual CPU devices.  Covers
 collectives, and one tiny batch-sharded solve whose instances live on
 BOTH processes (host-local shards -> global array -> SPMD jit).
 
-Needs no pod: this is the standard CPU stand-in for the DCN half of
-the multi-host story; the ICI half (collectives inside shard_map) is
-covered by the virtual-mesh tests.
+Needs no cluster: this is the standard CPU stand-in for the
+cross-process half of the multi-host story; the in-process half
+(collectives inside shard_map) is covered by the virtual-mesh tests.
 """
 
 import os

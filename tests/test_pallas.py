@@ -1,8 +1,7 @@
-"""Pallas fused-kernel parity (interpret mode on CPU, f64 strict).
+"""Batched inner solve (ops/pallas_riccati.solve_batched) parity, f64.
 
-On hardware the same kernels are validated by bench.py's finite-ness
-check and were cross-checked against the dense backend at full matmul
-precision (5.8e-6 in f32); here interpret mode pins the math exactly.
+The Triton sweep runs under the Pallas interpreter (impl="interpret");
+on the GPU the same solves are checked by chip_smoke.py.
 """
 
 import dataclasses
@@ -36,7 +35,7 @@ def _batch(problem, B, seed=0):
 def test_pallas_matches_dense_quadrotor(constrained):
     problem, _ = quadrotor(N=12, constrained=constrained)
     bp, its, x0 = _batch(problem, B=4)
-    ws_p = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
+    ws_p = pallas_riccati.solve_batched(bp, its, x0, SIGMA, impl="interpret")
     ws_d, _ = dense.solve_batched(bp, its, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws_p), np.asarray(ws_d), atol=1e-10
@@ -46,7 +45,7 @@ def test_pallas_matches_dense_quadrotor(constrained):
 def test_pallas_matches_sequential_random():
     problem = random_lq(5, 3, 9, nc=2, seed=1)
     bp, its, x0 = _batch(problem, B=3, seed=1)
-    ws_p = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
+    ws_p = pallas_riccati.solve_batched(bp, its, x0, SIGMA, impl="interpret")
     ws_s, _ = sequential.solve_batched(bp, its, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws_p), np.asarray(ws_s), atol=1e-9
@@ -54,12 +53,13 @@ def test_pallas_matches_sequential_random():
 
 
 def test_pallas_larger_state_dims():
-    """Mass-spring chain (nx=40, nu=10) through the fused kernels."""
+    """Mass-spring chain (nx=40, nu=10) through the kernel (64-wide
+    tiles)."""
     from pdp_lqr_tpu.models import mass_spring_chain
 
     problem = mass_spring_chain(n_masses=20, N=6)
     bp, its, x0 = _batch(problem, B=2)
-    ws_p = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
+    ws_p = pallas_riccati.solve_batched(bp, its, x0, SIGMA, impl="interpret")
     ws_d, _ = dense.solve_batched(bp, its, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws_p), np.asarray(ws_d), atol=1e-8
@@ -67,84 +67,13 @@ def test_pallas_larger_state_dims():
 
 
 def test_pallas_centroidal_cones_dims():
-    """Centroidal model (nx=24, nu=6, nc=6) through the fused kernels."""
+    """Centroidal model (nx=24, nu=6, nc=6) through the kernel."""
     from pdp_lqr_tpu.models import centroidal
 
     problem, _ = centroidal(N=5)
     bp, its, x0 = _batch(problem, B=2)
-    ws_p = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
+    ws_p = pallas_riccati.solve_batched(bp, its, x0, SIGMA, impl="interpret")
     ws_d, _ = dense.solve_batched(bp, its, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws_p), np.asarray(ws_d), atol=1e-7
     )
-
-
-def test_pallas_lane_chunking(monkeypatch):
-    """B > LANE_CHUNK splits into chunks with identical results."""
-    problem, _ = quadrotor(N=6, constrained=True)
-    bp, its, x0 = _batch(problem, B=6)
-    ws_ref = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
-    monkeypatch.setattr(pallas_riccati, "LANE_CHUNK", 2)  # -> 3 chunks
-    ws_chunked = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(ws_chunked), np.asarray(ws_ref), atol=1e-12
-    )
-
-
-def test_multi_stage_grid_blocks(monkeypatch):
-    """T stages per grid step (the pipeline-overhead amortization) is
-    pure scheduling: N=16 picks T=8, and forcing T=1 must reproduce it
-    to rounding (the vectorized _mv reduction may be reassociated
-    differently by XLA across the two program shapes, so bitwise
-    equality is not guaranteed; 1e-12 in f64 pins same-math).
-
-    conftest pins MAX_STAGE_BLOCK=1 suite-wide (compile time); this
-    test restores it to exercise the blocked path."""
-    monkeypatch.setattr(pallas_riccati, "MAX_STAGE_BLOCK", 8)
-    problem, _ = quadrotor(N=16, constrained=True)
-    bp, its, x0 = _batch(problem, B=4)
-    assert pallas_riccati._pick_stages(16, 764, 3072, 4, 8) == 8
-    ws_T = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
-    monkeypatch.setattr(
-        pallas_riccati, "_pick_stages", lambda *a, **k: 1)
-    ws_1 = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(ws_T), np.asarray(ws_1), atol=1e-12
-    )
-
-
-def test_lanes_roundtrip():
-    x = jnp.arange(24.0).reshape(2, 3, 4)
-    y = pallas_riccati.from_lanes(pallas_riccati.to_lanes(x))
-    np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-def test_bf16_storage_mode():
-    """bf16-streamed stage data with f32 compute: results track the f32
-    path to data-quantization accuracy (~1e-2 relative)."""
-    problem, _ = quadrotor(N=8, constrained=True, dtype=jnp.float32)
-    bp, its, x0 = _batch(problem, B=3)
-    ws32 = pallas_riccati.solve_lanes(bp, its, x0, SIGMA, interpret=True)
-    ws16 = pallas_riccati.solve_lanes(
-        bp, its, x0, SIGMA, storage_dtype=jnp.bfloat16, interpret=True
-    )
-    assert ws16.dtype == jnp.float32
-    scale = np.abs(np.asarray(ws32)).max()
-    err = np.abs(np.asarray(ws16) - np.asarray(ws32)).max() / scale
-    assert err < 2e-2, err
-    assert np.all(np.isfinite(np.asarray(ws16)))
-
-
-def test_packed_stream_kernels_match_lanes():
-    """Packed-stream kernel pair (solve_packed) == solve_lanes
-    bit-for-bit: same math through single row-concatenated windows
-    (the per-window DMA overhead experiment; see KERNEL_DESIGN.md)."""
-    for constrained in (False, True):
-        problem, _ = quadrotor(N=10, constrained=constrained)
-        bp, its, x0 = _batch(problem, B=3)
-        ws_l = pallas_riccati.solve_lanes(bp, its, x0, SIGMA,
-                                          interpret=True)
-        ws_p = pallas_riccati.solve_packed(bp, its, x0, SIGMA,
-                                           interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(ws_p), np.asarray(ws_l), atol=1e-12)

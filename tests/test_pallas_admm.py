@@ -1,10 +1,9 @@
-"""Single-kernel fused ADMM iteration (ops/pallas_admm) parity.
+"""solvers/admm.solve_fused: cached factors, warm starts, early exit.
 
-The single-kernel path must be bit-for-bit the same *algorithm* as the
-two-kernel fused path (solvers/admm.solve_fused): same relaxation,
-projections, dual updates, exact OSQP residuals, per-instance adaptive
-rho.  Interpret mode on CPU/f64 pins the math; hardware lowering is
-covered by bench.py --check.
+Each variant must follow the same iteration sequence as the plain
+always-refactor loop: same relaxation, projections, dual updates, exact
+OSQP residuals, per-instance adaptive rho.  CPU/f64 pins the math; the
+GPU sweep kernels run these paths in chip_smoke.py.
 """
 
 import dataclasses
@@ -13,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pdp_lqr_tpu.models import quadrotor, random_lq
+from pdp_lqr_tpu.models import quadrotor
 from pdp_lqr_tpu.solvers import admm
 
 
@@ -27,116 +26,6 @@ def _batched(problem, B):
     return jax.tree.map(
         lambda x: jnp.broadcast_to(x, (B,) + x.shape), problem
     )
-
-
-def test_single_kernel_matches_two_kernel_box():
-    """Box-constrained quadrotor, adaptive rho ON: identical sequences."""
-    problem, _ = quadrotor(N=10, constrained=True)
-    B = 3
-    rng = np.random.default_rng(2)
-    bp = _batched(problem, B)
-    bp = dataclasses.replace(
-        bp, c=bp.c + jnp.asarray(rng.normal(size=bp.c.shape) * 0.005)
-    )
-    x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
-    st = _settings(max_iter=80)
-    ws2, st2, info2 = admm.solve_fused(bp, x0s, (), st, interpret=True)
-    ws1, st1, info1 = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=True
-    )
-    np.testing.assert_allclose(np.asarray(ws1), np.asarray(ws2), atol=1e-9)
-    np.testing.assert_allclose(np.asarray(st1.z), np.asarray(st2.z), atol=1e-9)
-    np.testing.assert_allclose(np.asarray(st1.y), np.asarray(st2.y), atol=1e-9)
-    np.testing.assert_allclose(
-        np.asarray(st1.rho), np.asarray(st2.rho), rtol=1e-9
-    )
-    np.testing.assert_allclose(
-        np.asarray(info1.r_prim), np.asarray(info2.r_prim), rtol=1e-6,
-        atol=1e-12,
-    )
-    np.testing.assert_allclose(
-        np.asarray(info1.r_dual), np.asarray(info2.r_dual), rtol=1e-6,
-        atol=1e-12,
-    )
-    np.testing.assert_array_equal(
-        np.asarray(info1.iter_converged), np.asarray(info2.iter_converged)
-    )
-
-
-def test_single_kernel_matches_two_kernel_cones():
-    """SOC + RSOC + shift + box rows in one problem."""
-    rng = np.random.default_rng(9)
-    nx, nu, N = 4, 2, 8
-    base = random_lq(nx, nu, N, nc=0, seed=9)
-    nz = nx + nu
-    # Rows: [soc t; soc u0; soc u1; rsoc p; rsoc q; rsoc x1; box x-row]
-    D = np.zeros((N + 1, 7, nz))
-    D[:N, 1, 0] = 1.0
-    D[:N, 2, 1] = 1.0
-    D[:N, 5, 0] = 0.7          # rsoc x-row on u0
-    D[:, 6, nu] = 1.0          # box on x0 (all stages)
-    lb = np.full((N + 1, 7), -np.inf)
-    ub = np.full((N + 1, 7), np.inf)
-    lb[:, 6], ub[:, 6] = -0.4, 0.4
-    problem = dataclasses.replace(
-        base, D=jnp.asarray(D), e_lb=jnp.asarray(lb), e_ub=jnp.asarray(ub)
-    )
-    shift = np.zeros((N + 1, 7))
-    shift[:, 0] = 0.25          # soc margin
-    shift[:, 3] = 0.2           # rsoc p
-    shift[:, 4] = 0.2           # rsoc q
-    shift_j = jnp.asarray(shift)
-    cones = ((0, 3), (3, 3, "rsoc"))
-
-    B = 2
-    bp = _batched(problem, B)
-    x0s = jnp.asarray(rng.normal(size=(B, nx)) * 0.3)
-    st = _settings(max_iter=100)
-    ws2, _, info2 = admm.solve_fused(
-        bp, x0s, cones, st, soc_shift=shift_j, interpret=True
-    )
-    ws1, _, info1 = admm.solve_fused(
-        bp, x0s, cones, st, soc_shift=shift_j, interpret=True,
-        single_kernel=True,
-    )
-    np.testing.assert_allclose(np.asarray(ws1), np.asarray(ws2), atol=1e-9)
-    np.testing.assert_allclose(
-        np.asarray(info1.r_prim), np.asarray(info2.r_prim), rtol=1e-6,
-        atol=1e-12,
-    )
-
-
-def test_single_kernel_odd_horizon_stage_block_fallback(monkeypatch):
-    """N with no small divisor forces T=1 (one stage per grid step);
-    divisible horizons pick the largest fitting T.  Parity must hold
-    either way."""
-    from pdp_lqr_tpu.ops import pallas_riccati
-    from pdp_lqr_tpu.ops.pallas_riccati import _pick_stages
-
-    # conftest pins MAX_STAGE_BLOCK=1 for compile time; restore it for
-    # the selection assertions (the solves below run at T=1, which is
-    # exactly the fallback this test pins).
-    monkeypatch.setattr(pallas_riccati, "MAX_STAGE_BLOCK", 8)
-    assert _pick_stages(7, 100, 100, 128, 4) == 1
-    assert _pick_stages(16, 100, 100, 128, 4) == 8
-    assert _pick_stages(10, 100, 100, 128, 4) == 2
-    # A huge streamed block degrades T before the chunk.
-    assert _pick_stages(16, 1 << 20, 100, 128, 4) == 1
-    monkeypatch.setattr(pallas_riccati, "MAX_STAGE_BLOCK", 1)
-
-    problem, _ = quadrotor(N=7, constrained=True)
-    B = 2
-    bp = _batched(problem, B)
-    x0s = jnp.full((B, 12), 0.03)
-    st = _settings(max_iter=30)
-    ws1, _, _ = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=True
-    )
-    ws2, _, _ = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=False
-    )
-    np.testing.assert_allclose(np.asarray(ws1), np.asarray(ws2),
-                               atol=1e-9)
 
 
 def test_cached_factors_matches_full_refactor():
@@ -153,11 +42,11 @@ def test_cached_factors_matches_full_refactor():
     x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
     st = _settings(max_iter=80, rho_update_interval=20)
     ws_ref, st_ref, info_ref = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=False
+        bp, x0s, (), st
     )
     st_cf = dataclasses.replace(st, cached_factors=True)
     ws_cf, st_c, info_cf = admm.solve_fused(
-        bp, x0s, (), st_cf, interpret=True, single_kernel=False
+        bp, x0s, (), st_cf
     )
     np.testing.assert_allclose(np.asarray(ws_cf), np.asarray(ws_ref),
                                atol=1e-8)
@@ -166,10 +55,11 @@ def test_cached_factors_matches_full_refactor():
     np.testing.assert_allclose(np.asarray(info_cf.r_prim),
                                np.asarray(info_ref.r_prim),
                                rtol=1e-5, atol=1e-12)
-    # Single-kernel cached mode: (P, L, K) streamed into the fused
-    # iteration, vector-only in-kernel sweep — same sequence again.
+    # Shared-model cached mode (one model, per-scenario drift and
+    # per-instance rho, so per-instance factors) — same sequence again.
+    sp = dataclasses.replace(problem, c=bp.c)
     ws_1k, st_1, info_1k = admm.solve_fused(
-        bp, x0s, (), st_cf, interpret=True, single_kernel=True
+        sp, x0s, (), st_cf
     )
     np.testing.assert_allclose(np.asarray(ws_1k), np.asarray(ws_ref),
                                atol=1e-8)
@@ -191,31 +81,18 @@ def test_cached_factors_warm_start_reuse():
         bp, c=bp.c + jnp.asarray(rng.normal(size=bp.c.shape) * 0.004)
     )
     x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
-    # Pinned to the two-kernel path: this test exercises the factor
-    # warm-start bookkeeping, not the kernels (single-kernel cached
-    # parity is covered by test_cached_factors_matches_full_refactor,
-    # and interpret-mode lax.cond-of-pallas is ~10x slower there).
     st = _settings(max_iter=30, adaptive_rho=False, cached_factors=True)
-    ws1, state, _ = admm.solve_fused(bp, x0s, (), st, interpret=True,
-                                     single_kernel=False)
+    ws1, state, _ = admm.solve_fused(bp, x0s, (), st)
     assert state.factors is not None
     rho_f = np.asarray(state.factors[-1])
     np.testing.assert_array_equal(rho_f, np.asarray(state.rho))
 
     # Warm solve WITH factors vs warm solve with factors stripped.
-    ws2, _, _ = admm.solve_fused(bp, x0s, (), st, state=state,
-                                 interpret=True, single_kernel=False)
+    ws2, _, _ = admm.solve_fused(bp, x0s, (), st, state=state)
     bare = dataclasses.replace(state, factors=None)
-    ws2_ref, _, _ = admm.solve_fused(bp, x0s, (), st, state=bare,
-                                     interpret=True, single_kernel=False)
+    ws2_ref, _, _ = admm.solve_fused(bp, x0s, (), st, state=bare)
     np.testing.assert_allclose(np.asarray(ws2), np.asarray(ws2_ref),
                                atol=1e-9)
-    # (Single-kernel factor warm-start shares this exact carry0 code
-    # path — `if settings.cached_factors:` — and its in-solve caching
-    # incl. the rho_f sentinel is pinned by
-    # test_cached_factors_matches_full_refactor; a dedicated 1k
-    # warm-start run would add ~900s of interpret-mode compiles.)
-
     # mpc.shift_state preserves the factors.
     from pdp_lqr_tpu import mpc
 
@@ -239,17 +116,16 @@ def test_early_exit_while_loop():
     x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
 
     st0 = _settings(max_iter=25, eps_abs=0.0, eps_rel=0.0)
-    ws_scan, _, _ = admm.solve_fused(bp, x0s, (), st0, interpret=True)
+    ws_scan, _, _ = admm.solve_fused(bp, x0s, (), st0)
     ws_while, _, info_w = admm.solve_fused(
         bp, x0s, (), dataclasses.replace(st0, early_exit=True),
-        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(ws_while), np.asarray(ws_scan))
     assert int(np.asarray(info_w.iterations)[0]) == 25
 
     st1 = _settings(max_iter=200, eps_abs=1e-4, eps_rel=1e-4,
                     early_exit=True)
-    ws_e, _, info_e = admm.solve_fused(bp, x0s, (), st1, interpret=True)
+    ws_e, _, info_e = admm.solve_fused(bp, x0s, (), st1)
     its = np.asarray(info_e.iterations)
     assert np.all(np.asarray(info_e.converged))
     assert int(its[0]) < 200
@@ -258,86 +134,5 @@ def test_early_exit_while_loop():
     # agree to tolerance scale, not machine precision.
     ws_full, _, _ = admm.solve_fused(
         bp, x0s, (), dataclasses.replace(st1, early_exit=False),
-        interpret=True,
     )
     assert float(jnp.max(jnp.abs(ws_e - ws_full))) < 3e-2
-
-
-def test_auto_single_kernel_selection():
-    """"auto" picks the fused iteration iff the gain spill fits VMEM."""
-    from pdp_lqr_tpu.ops import pallas_admm
-
-    # Quadrotor short horizon: fits at the 128-lane floor.
-    assert pallas_admm.fits_vmem(64, 12, 4, 16)
-    # Long horizon: the (K, d) spill alone exceeds the budget.
-    assert not pallas_admm.fits_vmem(4096, 12, 4, 16)
-    # Large-state model at N=200: falls back to the two-kernel path.
-    assert not pallas_admm.fits_vmem(200, 40, 10, 50)
-
-
-def test_single_kernel_bf16_storage():
-    """bf16 stage streaming: full-precision iterates, data-rounding-
-    bounded solution error, compute-dtype outputs."""
-    problem, _ = quadrotor(N=10, constrained=True)
-    B = 2
-    rng = np.random.default_rng(7)
-    bp = _batched(problem, B)
-    bp = dataclasses.replace(
-        bp, c=bp.c + jnp.asarray(rng.normal(size=bp.c.shape) * 0.005)
-    )
-    x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
-    st = _settings(max_iter=60)
-    ws_f, stf, _ = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=True
-    )
-    ws_b, stb, info_b = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=True,
-        storage_dtype=jnp.bfloat16,
-    )
-    assert ws_b.dtype == ws_f.dtype          # compute dtype, not bf16
-    assert stb.y.dtype == stf.y.dtype
-    assert bool(jnp.all(jnp.isfinite(ws_b)))
-    # Solution error is bounded by the bf16 rounding of the problem
-    # data (~0.4% relative), not by iterate accumulation.
-    scale = max(1.0, float(jnp.max(jnp.abs(ws_f))))
-    err = float(jnp.max(jnp.abs(ws_b - ws_f))) / scale
-    assert err < 3e-2, err
-    # storage_dtype is a single-kernel feature (explicit two-kernel
-    # selection rejects it; "auto" resolves to the single kernel here).
-    import pytest
-
-    with pytest.raises(ValueError):
-        admm.solve_fused(bp, x0s, (), st, interpret=True,
-                         single_kernel=False,
-                         storage_dtype=jnp.bfloat16)
-
-
-def test_single_kernel_multi_chunk():
-    """B > chunk splits into lane chunks with identical results."""
-    from pdp_lqr_tpu.ops import pallas_admm, pallas_riccati
-
-    problem, _ = quadrotor(N=6, constrained=True)
-    B = 4
-    rng = np.random.default_rng(4)
-    bp = _batched(problem, B)
-    bp = dataclasses.replace(
-        bp, c=bp.c + jnp.asarray(rng.normal(size=bp.c.shape) * 0.004)
-    )
-    x0s = jnp.asarray(rng.normal(size=(B, 12)) * 0.05)
-    st = _settings(max_iter=30)
-    ws_ref, _, _ = admm.solve_fused(
-        bp, x0s, (), st, interpret=True, single_kernel=True
-    )
-
-    orig = pallas_admm._pick_chunk
-    try:
-        pallas_admm._pick_chunk = \
-            lambda Bt, *a, **kw: 2 if Bt % 2 == 0 else Bt
-        ws_chunked, _, _ = admm.solve_fused(
-            bp, x0s, (), st, interpret=True, single_kernel=True
-        )
-    finally:
-        pallas_admm._pick_chunk = orig
-    np.testing.assert_allclose(
-        np.asarray(ws_chunked), np.asarray(ws_ref), atol=1e-12
-    )

@@ -241,7 +241,7 @@ def test_batch_operator_matches_fused():
     ws_op, st_op, info_op = realtime.solve_batch(
         bp, x0s, op, (), settings)
     ws_f, st_f, info_f = admm.solve_fused(
-        bp, x0s, (), settings, interpret=True)
+        bp, x0s, (), settings)
     np.testing.assert_allclose(
         np.asarray(ws_op), np.asarray(ws_f), atol=1e-8)
     np.testing.assert_allclose(

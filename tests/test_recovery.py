@@ -48,7 +48,7 @@ def _fn_seq(p, i, x, s):
 
 
 def _fn_pallas(p, i, x, s):
-    return pallas_riccati.solve_lanes(p, i, x, s, interpret=True)
+    return pallas_riccati.solve_batched(p, i, x, s, impl="interpret")
 
 
 def test_recovery_mixed_batch_dense():
@@ -79,7 +79,7 @@ def test_recovery_escalation():
 
 
 def test_recovery_pallas_backend():
-    """The same policy over the fused Pallas path (interpret mode)."""
+    """The same policy over the Triton sweep (interpret mode)."""
     bp, its, x0 = _mixed_batch()
     ws, info = recovery.solve_with_recovery(
         _fn_pallas, bp, its, x0, SIGMA, sigma_bump=10.0, retries=1)

@@ -137,8 +137,8 @@ def test_rho_eq_boost_tightens_equality():
 
 def test_rho_eq_boost_kernel_parity():
     """The per-row rho vector flows identically through the scalar
-    loop, the two-kernel fused loop, and the single-kernel fused loop
-    (in-kernel boost fold)."""
+    loop, the fused batch loop, and the fused loop on a shared model
+    (rho-boost fold on width-1 stage tensors)."""
     import jax
 
     problem, _ = _eq_problem(N=8)
@@ -148,10 +148,8 @@ def test_rho_eq_boost_kernel_parity():
     x0 = jnp.full((B, problem.nx), 0.05, problem.c.dtype)
     st = admm.ADMMSettings(max_iter=10, adaptive_rho=False,
                            eps_abs=1e-6, eps_rel=1e-6)
-    ws_2k, _, _ = admm.solve_fused(bp, x0, (), st, interpret=True,
-                                   single_kernel=False)
-    ws_1k, _, _ = admm.solve_fused(bp, x0, (), st, interpret=True,
-                                   single_kernel=True)
+    ws_2k, _, _ = admm.solve_fused(bp, x0, (), st)
+    ws_1k, _, _ = admm.solve_fused(problem, x0, (), st)
     ws_s, _, _ = admm.solve(problem, x0[0], (), st)
     np.testing.assert_allclose(
         np.asarray(ws_1k), np.asarray(ws_2k), atol=1e-9)
@@ -161,10 +159,8 @@ def test_rho_eq_boost_kernel_parity():
     # as the vector folds (a plain-mask factor build converges to the
     # wrong fixed point on equality rows).
     stc = dataclasses.replace(st, cached_factors=True)
-    ws_2kc, _, _ = admm.solve_fused(bp, x0, (), stc, interpret=True,
-                                    single_kernel=False)
-    ws_1kc, _, _ = admm.solve_fused(bp, x0, (), stc, interpret=True,
-                                    single_kernel=True)
+    ws_2kc, _, _ = admm.solve_fused(bp, x0, (), stc)
+    ws_1kc, _, _ = admm.solve_fused(problem, x0, (), stc)
     np.testing.assert_allclose(
         np.asarray(ws_2kc), np.asarray(ws_2k), atol=1e-9)
     np.testing.assert_allclose(

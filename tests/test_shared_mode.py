@@ -2,9 +2,9 @@
 
 The reference holds exactly one LQRModel per process behind all solvers
 (lqr_model.hpp:66-89); prepare_shared/solve_shared serve a scenario
-batch against it without B HBM copies of the stage matrices.  Parity is
-pinned against the dense backend and against the replicated
-(prepare_lanes) path in interpret mode.
+batch against it without B device copies of the stage matrices.  Parity
+is pinned against the dense backend and against the replicated
+(solve_batched) path; the Triton sweep runs in interpret mode.
 """
 
 import dataclasses
@@ -64,7 +64,7 @@ def _replicated(problem, it, x0):
 def test_shared_matches_dense(constrained):
     problem, _ = quadrotor(N=12, constrained=constrained)
     sp, it, x0 = _scenarios(problem, B=4)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
     ws_d, _ = dense.solve_batched(bp, bit, x0, SIGMA)
     np.testing.assert_allclose(
@@ -73,27 +73,23 @@ def test_shared_matches_dense(constrained):
 
 
 def test_shared_matches_replicated_lanes():
-    """solve_shared == solve_lanes on the equivalent broadcast batch."""
+    """solve_shared == solve_batched on the equivalent broadcast batch
+    (kernel against the XLA sweep)."""
     problem, _ = quadrotor(N=10, constrained=True)
     sp, it, x0 = _scenarios(problem, B=3, batched_iterates=True)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
-    ws_l = pr.solve_lanes(bp, bit, x0, SIGMA, interpret=True)
+    ws_l = pr.solve_batched(bp, bit, x0, SIGMA, impl="xla")
     np.testing.assert_allclose(
         np.asarray(ws_sh), np.asarray(ws_l), atol=1e-9
     )
 
 
 def test_shared_mass_spring_large_state():
-    """The OOM-motivating shape family (big nz) in miniature.
-
-    nx=20/nu=10 here — the interpret-mode compile of the full nz=50
-    unrolled matrix sweep takes minutes; the real nz=50 shared path is
-    exercised on hardware by bench.py --check and the mass-spring
-    bench config."""
+    """The large-state shape family (nx=20, nu=10), shared model."""
     problem = mass_spring_chain(n_masses=10, N=6)
     sp, it, x0 = _scenarios(problem, B=2)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
     ws_d, _ = dense.solve_batched(bp, bit, x0, SIGMA)
     np.testing.assert_allclose(
@@ -105,51 +101,12 @@ def test_shared_unbatched_c_and_iterates():
     """Scenario variation through x0 only (c and iterates shared)."""
     problem = random_lq(5, 3, 8, nc=2, seed=3)
     sp, it, x0 = _scenarios(problem, B=3, batched_c=False)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
     ws_d, _ = dense.solve_batched(bp, bit, x0, SIGMA)
     np.testing.assert_allclose(
         np.asarray(ws_sh), np.asarray(ws_d), atol=1e-9
     )
-
-
-def test_shared_multi_chunk_pinning(monkeypatch):
-    """Lane chunks > 1: every batch chunk reads the SAME pinned shared
-    block; results must match the single-chunk run exactly."""
-    problem, _ = quadrotor(N=6, constrained=True)
-    sp, it, x0 = _scenarios(problem, B=6)
-    ws_ref = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
-    monkeypatch.setattr(pr, "LANE_CHUNK", 2)  # -> 3 chunks, W=2
-    ws_chunked = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(ws_chunked), np.asarray(ws_ref), atol=1e-12
-    )
-
-
-def test_shared_width_slicing():
-    """Shared tensors wider than the kernel chunk (a multiple) are
-    sliced down — prepare_shared replicates to the widest consumer."""
-    problem, _ = quadrotor(N=6, constrained=True)
-    sp, it, x0 = _scenarios(problem, B=4)
-    prep = pr.prepare_shared(sp, it, x0, SIGMA)
-    # Double every shared width; kernels must slice back to chunk.
-    widen = lambda x: jnp.concatenate([x, x], axis=-1)
-    prep_wide = tuple(widen(a) for a in prep[:6]) + prep[6:]
-    ws_ref = pr.solve_shared_prepared(prep, interpret=True)
-    ws_wide = pr.solve_shared_prepared(prep_wide, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(ws_wide), np.asarray(ws_ref), atol=1e-12
-    )
-
-
-def test_shared_width_error():
-    """Non-multiple shared width is a hard error, not silent garbage."""
-    problem, _ = quadrotor(N=6, constrained=True)
-    sp, it, x0 = _scenarios(problem, B=4)
-    prep = pr.prepare_shared(sp, it, x0, SIGMA)
-    bad = tuple(a[..., :3] for a in prep[:6]) + prep[6:]  # W=3, chunk=4
-    with pytest.raises(ValueError, match="multiple of the kernel"):
-        pr.solve_shared_prepared(bad, interpret=True)
 
 
 def test_shared_rejects_batched_model():
@@ -166,7 +123,7 @@ def test_shared_horizon_one():
     """N=1 edge: single backward step, single rollout step."""
     problem, _ = quadrotor(N=1, constrained=True)
     sp, it, x0 = _scenarios(problem, B=2)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
     ws_d, _ = dense.solve_batched(bp, bit, x0, SIGMA)
     np.testing.assert_allclose(
@@ -199,7 +156,7 @@ def test_shared_ragged_constraint_padding():
         q=rng.normal(size=nx) * 0.1, r=None,
         stage_constraints=stage_cons, N=N)
     sp, it, x0 = _scenarios(problem, B=3, batched_iterates=True)
-    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, interpret=True)
+    ws_sh = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
     bp, bit = _replicated(sp, it, x0)
     ws_d, _ = dense.solve_batched(bp, bit, x0, SIGMA)
     np.testing.assert_allclose(
@@ -208,12 +165,13 @@ def test_shared_ragged_constraint_padding():
 
 def test_shared_cached_factors_match_full():
     """shared_factors + solve_shared_cached == solve_shared (the
-    serving-granularity without-factorization split)."""
+    serving-granularity without-factorization split), with the factors
+    from the XLA sweep feeding the kernel's vector sweep."""
     problem, _ = quadrotor(N=8, constrained=True)
     sp, it, x0 = _scenarios(problem, B=3, batched_iterates=True)
     prep = pr.prepare_shared(sp, it, x0, SIGMA)
-    ws_full = pr.solve_shared_prepared(prep, interpret=True)
-    fac = pr.shared_factors(prep, interpret=True)
-    ws_cached = pr.solve_shared_cached(prep, fac, interpret=True)
+    ws_full = pr.solve_shared(sp, it, x0, SIGMA, impl="interpret")
+    fac = pr.shared_factors(prep, impl="xla")
+    ws_cached = pr.solve_shared_cached(prep, fac, impl="interpret")
     np.testing.assert_allclose(
-        np.asarray(ws_cached), np.asarray(ws_full), atol=1e-12)
+        np.asarray(ws_cached), np.asarray(ws_full), atol=1e-10)

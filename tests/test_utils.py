@@ -45,7 +45,8 @@ def test_failure_mask():
 
 
 def test_roofline_sane():
-    r = profiling.riccati_roofline(N=512, nx=12, nu=4, nc=16, B=512)
+    r = profiling.riccati_roofline(N=512, nx=12, nu=4, nc=16, B=512,
+                                   device_kind="NVIDIA H100 80GB HBM3")
     assert r["t_mem_ms"] > 0 and r["t_compute_ms"] > 0
     assert r["bound"] in ("compute", "memory")
 
